@@ -1,0 +1,106 @@
+"""Command-line interface, in the shape of graphminer_tpu's:
+
+    python -m graphminer_tpu_torch tc <graph_prefix> --fast
+    python -m graphminer_tpu_torch info <graph_prefix>
+
+Ported so far: `tc --fast` (the stream engine) and `info`, with the --cpu,
+--json and --profile flags. Without --cpu the count runs on CUDA, and it
+fails when no card is visible. Every other verb, `tc` without --fast (the
+generic set-operation path), and the --sharded/--partition/--chunk/
+--backend/--engine flags are not ported yet: they exit non-zero and name
+ROADMAP.md, and nothing runs in their place.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+VERBS = ["tc", "clique", "sgl", "motif", "sc", "fsm", "gks", "query", "info"]
+PORTED_VERBS = ("tc", "info")
+
+
+def _not_ported(what: str) -> None:
+    raise SystemExit(f"graphminer_tpu_torch: {what} is not ported yet "
+                     "(see ROADMAP.md)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="graphminer_tpu_torch")
+    p.add_argument("workload", choices=VERBS)
+    p.add_argument("graph", help="graph prefix (…/graph)")
+    p.add_argument("args", nargs="*", help="workload args")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (plain PyTorch versions of the "
+                        "kernels) instead of CUDA")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard over all visible devices (not ported)")
+    p.add_argument("--chunk", type=int, default=None, help="(not ported)")
+    p.add_argument("--backend", default=None, help="(not ported)")
+    p.add_argument("--engine", default=None, help="(not ported)")
+    p.add_argument("--fast", action="store_true",
+                   help="fast engines: tc = stream engine")
+    p.add_argument("--partition", type=int, default=0, metavar="N",
+                   help="(not ported)")
+    p.add_argument("--profile", action="store_true",
+                   help="print the phase/counter profiler report and the "
+                        "kernel launch counts")
+    p.add_argument("--json", action="store_true", help="machine output")
+    ns = p.parse_args(argv)
+
+    if ns.workload not in PORTED_VERBS:
+        _not_ported(f"the '{ns.workload}' verb")
+    for flag in ("sharded", "partition", "chunk", "backend", "engine"):
+        if getattr(ns, flag):
+            _not_ported(f"--{flag}")
+    if ns.workload == "tc" and not ns.fast:
+        _not_ported("tc without --fast (the generic set-operation path)")
+
+    from .device import resolve_device
+    try:
+        device = resolve_device("cpu" if ns.cpu else "cuda")
+    except RuntimeError as e:
+        raise SystemExit(f"graphminer_tpu_torch: {e}") from None
+
+    from . import load_graph
+
+    t0 = time.time()
+    g = load_graph(ns.graph)
+    t_load = time.time() - t0
+
+    t0 = time.time()
+    out = {}
+    if ns.workload == "info":
+        out = {"V": g.n_vertices, "E": g.n_edges, "max_degree": g.max_degree,
+               "has_vlabels": g.vlabels is not None}
+    else:
+        from .ops.stream import triangle_count_stream
+        out["total"] = triangle_count_stream(g, device=device)
+    out["load_s"] = round(t_load, 3)
+    out["run_s"] = round(time.time() - t0, 3)
+    if ns.profile:
+        from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
+        from .ops.cuda_stream import stream_bucket_count
+        from .utils.profiling import PROFILER
+        rep = PROFILER.report()
+        dt = rep["phases_s"].get("device_count", 0.0)
+        ops = rep["counters"].get("set_ops_level2", 0)
+        if dt and ops:
+            rep["set_intersections_per_s"] = ops / dt
+        rep["device"] = str(device)
+        rep["kernel_launches"] = {
+            f.__name__: f.launches
+            for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs)}
+        out["profile"] = rep
+
+    if ns.json:
+        print(json.dumps(out))
+    else:
+        for k, v in out.items():
+            print(f"{k}: {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+
+The sources are compiled by nvcc for sm_90a into one shared library with a
+plain C interface, which is loaded with ctypes (no PyTorch headers, so a
+build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/libgm_kernels_<hash>.so csrc/*.cu
+
+The library lands in the package's git-ignored _build/ directory under a
+name keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is built once per checkout. A file lock
+serializes concurrent builds (several processes of one run).
+
+Each C entry point takes every pointer as c_void_p (tensor.data_ptr()),
+sizes as c_int64 and the stream as c_void_p
+(torch.cuda.current_stream().cuda_stream), launches on that stream without
+synchronizing, and returns cudaGetLastError().
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+#: what the last build in this process reported: seconds and nvcc's output
+#: (ptxas register/shared-memory lines); None when the library was cached
+BUILD_INFO = None
+
+_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+_SIGNATURES = {
+    # dst, src, n_rows, width, ws, wtv, wta, partials, n_blocks, stream
+    "gm_stream_bucket_count": [_VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP,
+                               _I64, _VP],
+    # table, n_table, src, dloc, n, words, wc, partials, n_blocks, stream
+    "gm_ring_phase_c": [_VP, _I64, _VP, _VP, _I64, _I64, _I64, _VP, _I64,
+                        _VP],
+    # ta, na, wa, tb, nb, wb, sa, sb, n, partials, n_blocks, stream
+    "gm_ring_tail_pairs": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
+                           _VP, _I64, _VP],
+}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libgm_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def build(path: str) -> None:
+    """Compile csrc/*.cu into `path`; raises with nvcc's output on failure."""
+    global BUILD_INFO
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(path + ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
+                               f"\n{r.stderr}")
+        os.replace(tmp, path)
+        BUILD_INFO = {"seconds": time.perf_counter() - t0,
+                      "log": r.stdout + r.stderr}
+
+
+def kernels():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = lib_path()
+            if not os.path.exists(path):
+                build(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,37 @@
+"""Argument checks shared by the kernel wrappers."""
+from __future__ import annotations
+
+import torch
+
+#: blocks per launch: enough to fill the H100's 132 SMs several times over;
+#: the kernels grid-stride over the rest
+GRID_CAP = 132 * 16
+BLOCK = 256
+#: elements per step of a plain version: its int64 temporaries stay under
+#: about 256 MB
+PLAIN_ELEMS = 1 << 23
+
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor is an int32 CUDA tensor on one device, False
+    when every one lies on the CPU; raises on anything else (mixed devices,
+    another dtype, a non-contiguous tensor for the kernel)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices: {devs}")
+    dev = devs.pop()
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel needs contiguous tensors")
+    return True
+
+
+def n_blocks(work_items: int) -> int:
+    return max(1, min(GRID_CAP, -(-work_items // BLOCK)))

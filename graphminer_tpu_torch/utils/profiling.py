@@ -1,0 +1,86 @@
+"""Profiling utilities: named phase timers and op counters.
+
+The counterpart of graphminer_tpu/utils/profiling.py. Parity: include/timer.h
+(Timer + TIME_OP), the per-phase timer arrays (fsm/omp_base.cc timers[0..5])
+and the per-set-op counters (common.h:72-74). A phase that runs on a CUDA
+device is timed with torch.cuda.Event pairs on the current stream, so it
+measures device time and not the host's enqueue; a CPU phase uses the host
+clock. Left out: xla_trace (torch.profiler is the tool on the card).
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+
+class Timer:
+    """Accumulating wall-clock timer (timer.h:6-44)."""
+
+    def __init__(self):
+        self.total = 0.0
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self):
+        self.total += time.perf_counter() - self._t0
+        self._t0 = None
+        return self.total
+
+    @property
+    def seconds(self) -> float:
+        return self.total
+
+
+class Profiler:
+    """Named phase timers + op counters; one per run."""
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = defaultdict(float)
+        self.counters: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, device: Optional[torch.device] = None):
+        """Time the block. With a CUDA `device`, the time is the device
+        time between two events recorded on the current stream (the exit
+        synchronizes on the end event); otherwise the host clock."""
+        if device is not None and torch.device(device).type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                yield
+            finally:
+                end.record()
+                end.synchronize()
+                self.seconds[name] += start.elapsed_time(end) / 1e3
+            return
+        t = Timer().start()
+        try:
+            yield
+        finally:
+            self.seconds[name] += t.stop()
+
+    def count(self, name: str, n: int = 1):
+        self.counters[name] += n
+
+    def report(self) -> Dict:
+        return {
+            "phases_s": {k: round(v, 6) for k, v in self.seconds.items()},
+            "counters": dict(self.counters),
+        }
+
+    def dump(self) -> str:
+        return json.dumps(self.report(), sort_keys=True)
+
+
+# process-wide default profiler (opt-in; hot paths don't touch it unless
+# callers pass it down)
+PROFILER = Profiler()

@@ -1,0 +1,69 @@
+"""Port CLI (python -m graphminer_tpu_torch) against the JAX package's CLI
+on an rmat12 graph saved in the reference binary format."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from graphminer_tpu.__main__ import main as jmain
+from graphminer_tpu_torch.__main__ import main
+from graphminer_tpu_torch.io.loader import save_graph
+from graphminer_tpu_torch.io.synth import rmat
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def prefix(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("rmat12") / "graph")
+    save_graph(rmat(12, 16, seed=7), p)
+    return p
+
+
+def run(fn, capsys, *args):
+    assert fn(list(args) + ["--json"]) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def run_port(*args, env=None):
+    return subprocess.run([sys.executable, "-m", "graphminer_tpu_torch",
+                           *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=120, env=env)
+
+
+def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
+    ours = run(main, capsys, "tc", prefix, "--fast", "--cpu", "--profile")
+    ref = run(jmain, capsys, "tc", prefix, "--fast", "--cpu")
+    assert ours["total"] == ref["total"] > 0
+    prof = ours["profile"]
+    assert prof["device"] == "cpu"
+    assert prof["counters"]["edge_tasks"] > 0
+    assert set(prof["kernel_launches"]) == {
+        "stream_bucket_count", "ring_phase_c", "ring_tail_pairs"}
+
+
+def test_info_agrees_with_jax(prefix, capsys):
+    ours = run(main, capsys, "info", prefix, "--cpu")
+    ref = run(jmain, capsys, "info", prefix, "--cpu")
+    for k in ("V", "E", "max_degree", "has_vlabels"):
+        assert ours[k] == ref[k]
+
+
+def test_tc_without_card_exits_naming_cuda(prefix):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = run_port("tc", prefix, "--fast", "--json", env=env)
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr
+    assert r.stdout == ""
+
+
+@pytest.mark.parametrize("args", [
+    ("tc",), ("clique", "4", "--fast"), ("sgl", "diamond"), ("motif", "3"),
+    ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
+def test_unported_exits_naming_roadmap(prefix, args):
+    with pytest.raises(SystemExit) as e:
+        main([args[0], prefix, *args[1:], "--cpu"])
+    assert e.value.code != 0
+    assert "ROADMAP.md" in str(e.value.code)

@@ -1,0 +1,84 @@
+"""Kernels A, B and C against their plain PyTorch versions on a CUDA card.
+
+These need the card (a CUDA kernel has no interpret mode) and skip without
+one; chip_smoke.py runs the same comparisons at the main path's shapes.
+Run them on a machine with a card:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
+
+(--noconftest: tests/conftest.py imports JAX, which such a machine may lack.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from graphminer_tpu_torch.io.synth import rmat
+from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
+from graphminer_tpu_torch.ops.ring import RingEngine
+from graphminer_tpu_torch.ops.stream import StreamEngine
+
+pytestmark = pytest.mark.cuda
+SENTINEL = 0x7FFFFFFF
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def words(rng, *shape):
+    return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+
+def tails(rng, rows, width):
+    vals = np.cumsum(rng.integers(1, 12, (rows, width)), axis=1
+                     ).astype(np.int32)
+    k = rng.integers(0, width + 1, rows)
+    vals[np.arange(width)[None, :] >= k[:, None]] = SENTINEL
+    return vals
+
+
+@pytest.mark.parametrize("ws", [8, 32, 128])
+@pytest.mark.parametrize("wtv,wta", [(0, 0), (16, 8), (48, 64)])
+def test_stream_bucket_count(dev, ws, wtv, wta):
+    rng = np.random.default_rng(ws + wtv)
+    n, width = 64, 32
+    d = np.concatenate([words(rng, n, ws), tails(rng, n, wtv)], axis=1)
+    s = np.concatenate([words(rng, n * width, ws),
+                        tails(rng, n * width, wta)], axis=1)
+    d, s = (torch.from_numpy(d).to(dev),
+            torch.from_numpy(s.reshape(n, width, ws + wta)).to(dev))
+    before = cuda_stream.stream_bucket_count.launches
+    got = cuda_stream.stream_bucket_count(d, s, ws=ws, wtv=wtv)
+    assert cuda_stream.stream_bucket_count.launches == before + 1
+    assert int(got) == int(cuda_stream.stream_bucket_count_plain(
+        d, s, ws=ws, wtv=wtv))
+
+
+@pytest.mark.parametrize("wc", [4, 16, 64, 256, 1024, 4096])
+def test_ring_phase_c(dev, wc):
+    rng = np.random.default_rng(wc)
+    table, src = words(rng, 4096, 128), words(rng, 64, 128)
+    dl = rng.integers(-3, 4099, (64, wc)).astype(np.int32)
+    args = [torch.from_numpy(x).to(dev) for x in (table, src, dl)]
+    assert int(cuda_ring.ring_phase_c(*args)) == \
+        int(cuda_ring.ring_phase_c_plain(*args))
+
+
+@pytest.mark.parametrize("wa,wb", [(8, 8), (64, 2048), (2048, 16)])
+def test_ring_tail_pairs(dev, wa, wb):
+    rng = np.random.default_rng(wa * wb)
+    ta, tb = tails(rng, 100, wa), tails(rng, 80, wb)
+    sa = rng.integers(-2, 102, 500).astype(np.int32)
+    sb = rng.integers(-2, 82, 500).astype(np.int32)
+    args = [torch.from_numpy(x).to(dev) for x in (ta, tb, sa, sb)]
+    assert int(cuda_ring.ring_tail_pairs(*args)) == \
+        int(cuda_ring.ring_tail_pairs_plain(*args))
+
+
+def test_engines_rmat14_golden(dev):
+    g = rmat(14, 16, seed=7)
+    assert StreamEngine(g, device=dev).count() == 2_860_691
+    assert RingEngine(g, device=dev).count() == 2_860_691
