@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — exact triangle counting on RMAT scale 18,
-edge factor 16, seed 7 (82,947,332 triangles) — and fails (non-zero exit,
+Drives the port's paths — exact triangle counting on RMAT scale 18, edge
+factor 16, seed 7 (82,947,332 triangles) through the stream, ring and
+hub-core engines, and the three probe scripts — and fails (non-zero exit,
 no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
-  2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc;
-  3. holds kernels A, B and C against their plain PyTorch versions on the
-     card, exactly: random inputs over every width class, then the real
-     buckets of an rmat14 build (whose counts must be 2,860,691);
+  2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
+     launches kernel R through the port's launch_check script;
+  3. holds kernels A, B, C, D, E, m3, m3b and R against their plain
+     PyTorch versions on the card, exactly: random inputs over every width
+     class, then the real buckets and tail groups of rmat14 builds (whose
+     counts must be 2,860,691, also through TriangleEngine);
   4. runs `python -m graphminer_tpu_torch tc <rmat18> --fast --json
      --profile` and checks its count and that kernel A launched;
   5. runs the ring engine on the same graph and checks its count and that
      kernels B and C launched;
-  6. times both engines' device counts with CUDA events (median of 11 after
-     warm-up), kernel and plain version side by side.
+  6. runs TriangleEngine on the same graph (count, tail + core split,
+     kernel E launched), the port's prof_breakdown at rmat18 (kernels E and
+     D) and prof_window at its defaults (m1 = m2 = m3 = m3b), in process;
+  7. times every kernel with CUDA events (median of 11 after warm-up),
+     kernel and plain version side by side, each beside the least time an
+     H100 could take for the same work, and the spoke product
+     (torch._int_mm) against its operations bound.
 
-The line before the last is the card's name and power limit; the last line
-is {"ok": true, "device": {...}}. The rmat18 graph is written under the
-git-ignored graph_cache/ directory.
+Each path of phases 2 and 4-6 runs with every launch count set to 0 just
+before it, and its counts are read just after. The line before the last is
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}. The rmat18 graph is written under the git-ignored graph_cache/
+directory.
 """
 import json
 import os
@@ -32,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = {14: 2_860_691, 18: 82_947_332}     # rmat(scale, 16, seed=7)
@@ -53,8 +64,30 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/ring_tail_pairs.cu",
         "replaces": "graphminer_tpu/ops/ring.py:361"},
+    "fetch_rows_sum": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/fetch_rows_sum.cu",
+        "replaces": "graphminer_tpu/ops/pallas_fetch.py:20"},
+    "hub_tail_count": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/hub_tail_count.cu",
+        "replaces": "graphminer_tpu/ops/hubcore.py:221"},
+    "window_count_m3": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/window_count.cu",
+        "replaces": "scripts/prof_window.py:134"},
+    "window_count_m3b": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/window_count.cu",
+        "replaces": "scripts/prof_window.py:183"},
+    "times_two": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/times_two.cu",
+        "replaces": "scripts/repro_mosaic_hang.py:26"},
 }
 MAX_ERR = {k: 0 for k in KERNELS}
+#: window_count's rows_per_step of kernels m3 and m3b
+WINDOW_ROWS = {"window_count_m3": 1, "window_count_m3b": 8}
 
 
 def check(cond, msg):
@@ -98,10 +131,71 @@ def build_kernels():
                 say(f"  ptxas: {line.strip()}")
 
 
+def wrappers():
+    """{kernel name: wrapper} for every kernel that counts its launches in
+    process (kernel A's count comes from the CLI's own process)."""
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore,
+                                          cuda_ring, cuda_stream, cuda_window,
+                                          fetch)
+    return {"stream_bucket_count": cuda_stream.stream_bucket_count,
+            "ring_phase_c": cuda_ring.ring_phase_c,
+            "ring_tail_pairs": cuda_ring.ring_tail_pairs,
+            "fetch_rows_sum": fetch.fetch_rows_sum,
+            "hub_tail_count": cuda_hubcore.hub_tail_count,
+            "window_count": cuda_window.window_count,
+            "times_two": cuda_check.times_two}
+
+
+def reset_counts():
+    for name, fn in wrappers().items():
+        if name == "window_count":
+            fn.launches = {r: 0 for r in fn.launches}
+        else:
+            fn.launches = 0
+
+
+def read_counts():
+    """{kernel name: launches since reset_counts()}."""
+    out = {}
+    for name, fn in wrappers().items():
+        if name == "window_count":
+            for k, r in WINDOW_ROWS.items():
+                out[k] = fn.launches[r]
+        else:
+            out[name] = fn.launches
+    return out
+
+
+def run_path(label, fn, kernels):
+    """Run one path with every count at 0 before it; returns (fn's result,
+    {kernel: launches} for `kernels`); fails if one was never launched."""
+    reset_counts()
+    val = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = {k: counts[k] for k in kernels}
+    say(f"{label}: launches {got}")
+    check(all(v > 0 for v in got.values()),
+          f"{label}: a kernel of the path was not launched: {got}")
+    return val, got
+
+
+def run_launch_check():
+    from graphminer_tpu_torch.scripts import launch_check
+    _, got = run_path("launch_check (kernel R)",
+                      lambda: launch_check.main([]), ["times_two"])
+    return got
+
+
 def compare(name, kernel_val, plain_val, what):
-    k, p = int(kernel_val), int(plain_val)
-    MAX_ERR[name] = max(MAX_ERR[name], abs(k - p))
-    check(k == p, f"{name} {what}: kernel {k} != plain {p}")
+    """Hold a kernel's result (a count or a tensor) against its plain
+    version's, exactly, and keep the largest difference seen."""
+    k = torch.as_tensor(kernel_val).to(torch.int64).cpu()
+    p = torch.as_tensor(plain_val).to(torch.int64).cpu()
+    check(k.shape == p.shape, f"{name} {what}: shapes {k.shape} {p.shape}")
+    err = int((k - p).abs().max()) if k.numel() else 0
+    MAX_ERR[name] = max(MAX_ERR[name], err)
+    check(err == 0, f"{name} {what}: kernel != plain (max abs err {err})")
 
 
 # --------------------------------------------------------------------------
@@ -180,8 +274,68 @@ def kernel_checks_random():
                     cuda_ring.ring_tail_pairs_plain(*args),
                     f"random wa={wa} wb={wb}")
             n_cases += 1
+    n_cases += kernel_checks_random_slice2(rng, t)
     torch.cuda.synchronize()
     say(f"kernel == plain on random inputs: {n_cases} cases exact")
+
+
+def kernel_checks_random_slice2(rng, t):
+    """D, E, m3, m3b and R on random inputs; returns the number of cases."""
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore,
+                                          cuda_window, fetch)
+    n_cases = 0
+    # R: random words, the int32 product wraps in both versions
+    x = t(_words(rng, (8, 128)))
+    compare("times_two", cuda_check.times_two(x),
+                    cuda_check.times_two_plain(x), "random [8, 128]")
+    n_cases += 1
+    # D: widths with 16-byte and 4-byte chunks, every pipeline depth,
+    # indices partly outside the table
+    for w in (8, 6, 32, 128, 256, 1024):
+        tbl = t(rng.integers(-1000, 1000, size=(5000, w)).astype(np.int32))
+        idx = t(rng.integers(-5, 5005, size=20000).astype(np.int32))
+        want = fetch.fetch_rows_sum_plain(idx, tbl)
+        for nb in fetch.N_BUF:
+            compare("fetch_rows_sum",
+                            fetch.fetch_rows_sum(idx, tbl, nb), want,
+                            f"random w={w} n_buf={nb}")
+            n_cases += 1
+    # E: classes narrower and wider than the stored tail, popcount-only
+    # groups, SENTINEL and out-of-range task ids
+    for words, wt, wa, wb in ((128, 48, 64, 16), (128, 48, 16, 64),
+                              (128, 48, 0, 0), (8, 8, 16, 64), (8, 0, 0, 0),
+                              (32, 16, 16, 1024), (256, 24, 16, 16)):
+        def rows(m):
+            return np.concatenate([_words(rng, (m, words)),
+                                   _tails(rng, m, wt, wt)], axis=1)
+        ns, nd, n = 700, 300, 50000
+        sr, dr = t(rows(ns)), t(rows(nd))
+        su = rng.integers(-2, ns + 2, size=n).astype(np.int32)
+        su[rng.random(n) < 0.05] = SENTINEL
+        dv = np.sort(rng.integers(-2, nd + 2, size=n)).astype(np.int32)
+        args, kw = (sr, dr, t(su), t(dv)), dict(words=words, wa=wa, wb=wb)
+        compare("hub_tail_count", cuda_hubcore.hub_tail_count(*args, **kw),
+                cuda_hubcore.hub_tail_count_plain(*args, **kw),
+                f"random words={words} wt={wt} wa={wa} wb={wb}")
+        n_cases += 1
+    # m3, m3b: windows that fit shared memory whole (W = 8) and windows
+    # split by columns, starts and local indices partly out of range
+    for tk, cap, span, w, nd in ((4096, 512, 256, 8, 3000),
+                                 (4096, 512, 256, 128, 3000),
+                                 (65536, 8192, 1024, 128, 57344),
+                                 (8192, 1024, 1024, 8, 5000),
+                                 (4096, 512, 4096, 16, 5000)):
+        nck = tk // cap
+        tbl, src = t(_words(rng, (nd, w))), t(_words(rng, (nck, cap, w)))
+        st = t(rng.integers(-100, nd + 100, size=nck).astype(np.int32))
+        li = t(rng.integers(-3, span + 3, size=(nck, cap)).astype(np.int32))
+        want = cuda_window.window_count_plain(src, tbl, st, li, span=span)
+        for name, r in WINDOW_ROWS.items():
+            compare(name, cuda_window.window_count(
+                src, tbl, st, li, span=span, rows_per_step=r), want,
+                f"random T={tk} cap={cap} span={span} w={w}")
+            n_cases += 1
+    return n_cases
 
 
 def bucket_calls(stream_eng, ring_eng):
@@ -209,6 +363,8 @@ def bucket_calls(stream_eng, ring_eng):
 
 def kernel_checks_rmat14():
     from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops.cuda_hubcore import (hub_tail_count,
+                                                       hub_tail_count_plain)
     from graphminer_tpu_torch.ops.ring import RingEngine
     from graphminer_tpu_torch.ops.stream import StreamEngine
     g = rmat(14, 16, seed=7)
@@ -219,16 +375,33 @@ def kernel_checks_rmat14():
             compare(name, kern(*args, **kw), plain(*args, **kw),
                     f"rmat14 bucket {[tuple(a.shape) for a in args]}")
         sizes[name] = len(calls)
+    from graphminer_tpu_torch.ops.hubcore import TriangleEngine
+    he = TriangleEngine(g, device="cuda")
+    for args, kw in tail_calls(he):
+        compare("hub_tail_count", hub_tail_count(*args, **kw),
+                hub_tail_count_plain(*args, **kw),
+                f"rmat14 tail group {kw}")
+    sizes["hub_tail_count"] = len(he.spec)
     torch.cuda.synchronize()
-    s, r = se.count(), re_.count()
-    check(s == GOLDEN[14] and r == GOLDEN[14],
-          f"rmat14 counts stream {s} ring {r} != {GOLDEN[14]}")
-    say(f"rmat14: kernel == plain on every bucket {sizes}; "
-        f"stream = ring = {s}")
+    s, r, h = se.count(), re_.count(), he.count()
+    check(s == GOLDEN[14] and r == GOLDEN[14] and h == GOLDEN[14],
+          f"rmat14 counts stream {s} ring {r} hub-core {h} != {GOLDEN[14]}")
+    ht, hc = he.count_tail(), he.count_core()
+    check(ht + hc == h, f"rmat14 hub-core tail {ht} + core {hc} != {h}")
+    say(f"rmat14: kernel == plain on every bucket and tail group {sizes}; "
+        f"stream = ring = hub-core = {s} (tail {ht} + core {hc})")
+
+
+def tail_calls(eng):
+    """[(args, kwargs)] of TriangleEngine's kernel-E calls, one per group."""
+    tab, lay = eng.tables, eng.layout
+    return [((tab.src_rows, tab.dst_rows, s.reshape(-1), d.reshape(-1)),
+             dict(words=lay.words, wa=wa, wb=wb))
+            for (s, d), (wa, wb, _ck) in zip(eng.group_arrays, eng.spec)]
 
 
 # --------------------------------------------------------------------------
-# phases 4-6: main path, ring engine, timing
+# phases 4, 5 and 7: main path, ring engine, timing
 # --------------------------------------------------------------------------
 
 def write_rmat18():
@@ -262,65 +435,92 @@ def run_cli():
 
 
 def run_ring(g):
-    from graphminer_tpu_torch.ops import cuda_ring
     from graphminer_tpu_torch.ops.ring import RingEngine
     t0 = time.perf_counter()
     eng = RingEngine(g, device="cuda")
     t_build = time.perf_counter() - t0
-    cuda_ring.ring_phase_c.launches = 0
-    cuda_ring.ring_tail_pairs.launches = 0
-    total = eng.count()
-    launches = {"ring_phase_c": cuda_ring.ring_phase_c.launches,
-                "ring_tail_pairs": cuda_ring.ring_tail_pairs.launches}
-    say(f"RingEngine rmat18: count={total} build_s={t_build:.1f} "
-        f"launches={launches}")
+    total, launches = run_path("RingEngine rmat18 count", eng.count,
+                               ["ring_phase_c", "ring_tail_pairs"])
+    say(f"RingEngine rmat18: count={total} build_s={t_build:.1f}")
     check(total == GOLDEN[18], f"ring count {total} != {GOLDEN[18]}")
-    check(all(v > 0 for v in launches.values()),
-          f"a ring kernel was not launched: {launches}")
     return eng, launches
 
 
 def time_ms(fn):
     """Median device time of fn() in ms over REPS runs after warm-up, and
     the value it returned."""
-    val = fn()
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts), val
+    from graphminer_tpu_torch.utils.profiling import time_ms as timed
+    return timed(fn, "cuda", REPS)
+
+
+def in_turns(run_k, run_p):
+    """(kernel ms, plain ms, kernel value, plain value) timed in turns:
+    plain, kernel, kernel, plain; each ms the median of the two medians."""
+    p1, pv = time_ms(run_p)
+    k1, kv = time_ms(run_k)
+    k2, _ = time_ms(run_k)
+    p2, _ = time_ms(run_p)
+    return statistics.median([k1, k2]), statistics.median([p1, p2]), kv, pv
+
+
+def gathered_bytes(pairs):
+    """Bytes of the table rows that index tensors name, each distinct row of
+    a table counted once: pairs = [(table [n, w], ids)], ids outside
+    [0, n) name nothing."""
+    by_table = {}
+    for table, ids in pairs:
+        by_table.setdefault(table.data_ptr(), (table, []))[1].append(
+            ids.reshape(-1))
+    total = 0
+    for table, ids in by_table.values():
+        ids = torch.cat(ids)
+        ids = ids[(ids >= 0) & (ids < table.shape[0])]
+        total += int(torch.unique(ids).numel()) * table.shape[1] * 4
+    return total
+
+
+def kernel_bytes(name, calls):
+    """The bytes a kernel's calls must move: every streamed input and every
+    gathered table row read once, one int64 partial written per call."""
+    nb = lambda t: t.numel() * t.element_size()
+    out = 8 * len(calls)
+    if name == "stream_bucket_count":
+        return out + sum(nb(a[0]) + nb(a[1]) for a, _ in calls)
+    if name == "ring_phase_c":                 # table, src_bm, dst_loc
+        return out + sum(nb(a[1]) + nb(a[2]) for a, _ in calls) + \
+            gathered_bytes([(a[0], a[2]) for a, _ in calls])
+    if name == "ring_tail_pairs":                      # ta, tb, sa, sb
+        return out + sum(nb(a[2]) + nb(a[3]) for a, _ in calls) + \
+            gathered_bytes([(a[0], a[2]) for a, _ in calls]
+                           + [(a[1], a[3]) for a, _ in calls])
+    raise KeyError(name)
 
 
 def timing(stream_eng, ring_eng):
     """Per-kernel and per-engine device time, kernel vs plain, in turns."""
+    from graphminer_tpu_torch.utils.profiling import bound_ms
     res = {}
     zero = torch.zeros((), dtype=torch.int64, device="cuda")
     for name, (kern, plain, calls) in bucket_calls(stream_eng,
                                                    ring_eng).items():
-        run_k = lambda: sum((kern(*a, **kw) for a, kw in calls), zero)
-        run_p = lambda: sum((plain(*a, **kw) for a, kw in calls), zero)
-        p1, pv = time_ms(run_p)
-        k1, kv = time_ms(run_k)
-        k2, _ = time_ms(run_k)
-        p2, _ = time_ms(run_p)
+        k, p, kv, pv = in_turns(
+            lambda: sum((kern(*a, **kw) for a, kw in calls), zero),
+            lambda: sum((plain(*a, **kw) for a, kw in calls), zero))
         compare(name, kv, pv, "rmat18 engine share")
-        res[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
+        b_ms, b_by = bound_ms(kernel_bytes(name, calls))
+        res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
         say(f"[{CARD}] {name} at rmat18 ({len(calls)} buckets): kernel "
-            f"{res[name][0]:.3f} ms, plain {res[name][1]:.3f} ms")
+            f"{res[name]['ms']:.3f} ms, plain {res[name]['plain_ms']:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by})")
     engines = (
         ("stream", stream_eng, stream_eng.stream.nbytes(),
-         res["stream_bucket_count"]),
+         [res["stream_bucket_count"]]),
         ("ring", ring_eng, ring_eng.layout.nbytes(),
-         tuple(a + b for a, b in zip(res["ring_phase_c"],
-                                     res["ring_tail_pairs"]))))
-    for label, eng, nbytes, (k_ms, p_ms) in engines:
+         [res["ring_phase_c"], res["ring_tail_pairs"]]))
+    for label, eng, nbytes, parts in engines:
+        k_ms = sum(r["ms"] for r in parts)
+        p_ms = sum(r["plain_ms"] for r in parts)
         e_ms, total = time_ms(lambda: eng.partials().sum())
         check(int(total) == GOLDEN[18], f"{label} total {int(total)}")
         say(f"[{CARD}] {label} engine rmat18 device count: {e_ms:.3f} ms "
@@ -331,16 +531,201 @@ def timing(stream_eng, ring_eng):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 6: the hub-core engine and the probe scripts
+# --------------------------------------------------------------------------
+
+def run_triangle_engine(g):
+    from graphminer_tpu_torch.ops.hubcore import TriangleEngine
+    t0 = time.perf_counter()
+    eng = TriangleEngine(g, device="cuda")
+    t_build = time.perf_counter() - t0
+    total, launches = run_path("TriangleEngine rmat18 count", eng.count,
+                               ["hub_tail_count"])
+    tail, core = eng.count_tail(), eng.count_core()
+    say(f"TriangleEngine rmat18: count={total} (tail {tail} + core {core}) "
+        f"build_s={t_build:.1f} groups={eng.spec} "
+        f"tail_tasks={eng.n_tail_tasks} spoke_rows={eng.spoke.shape[0]}")
+    check(total == GOLDEN[18], f"hub-core count {total} != {GOLDEN[18]}")
+    check(tail + core == total, f"tail {tail} + core {core} != {total}")
+    return eng, launches
+
+
+def run_prof_breakdown():
+    from graphminer_tpu_torch.scripts import prof_breakdown
+    out, launches = run_path("prof_breakdown rmat18",
+                             lambda: prof_breakdown.main([]),
+                             ["hub_tail_count", "fetch_rows_sum"])
+    total = out["tail"]["count"] + out["spoke"]["count"]
+    check(total == GOLDEN[18], f"prof_breakdown tail + spoke {total}")
+    check(len(out["fetch"]) == 8, f"prof_breakdown ran {len(out['fetch'])} "
+          "of 8 fetch shapes")
+    return out, launches
+
+
+def run_prof_window():
+    from graphminer_tpu_torch.scripts import prof_window
+    out, launches = run_path("prof_window defaults",
+                             lambda: prof_window.main([]),
+                             list(WINDOW_ROWS))
+    totals = {k: out[k]["total"] for k in ("m1", "m2", "m3", "m3b")}
+    check(len(set(totals.values())) == 1, f"prof_window totals {totals}")
+    return out, launches
+
+
+def int_mm_rules():
+    """torch._int_mm on the card: exact in each row/column-major layout of
+    its operands, and refusing m <= 16 and k or n not a multiple of 8."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    xt = torch.randint(0, 2, (4096, 512), generator=g, device="cuda",
+                       dtype=torch.int8)
+    ref = (xt.float() @ xt.t().float()).to(torch.int32)
+    col = xt.t().contiguous().t()                   # the same, column-major
+    for lay, (a, b) in {"A row, B col": (xt, xt.t()),
+                        "A row, B row": (xt, xt.t().contiguous()),
+                        "A col, B row": (col, xt.t().contiguous()),
+                        "A col, B col": (col, xt.t())}.items():
+        check(torch.equal(torch._int_mm(a, b), ref),
+              f"torch._int_mm inexact with {lay}")
+    refused = []
+    for (m, k), (k2, n) in (((16, 32), (32, 32)), ((17, 12), (12, 32)),
+                            ((32, 32), (32, 12))):
+        a = torch.ones((m, k), dtype=torch.int8, device="cuda")
+        b = torch.ones((n, k2), dtype=torch.int8, device="cuda").t()
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError:
+            refused.append((m, k, n))
+    check(len(refused) == 3, f"torch._int_mm refused only {refused}")
+    say(f"torch._int_mm: exact in all four operand layouts at [4096, 512] x "
+        f"[512, 4096]; refuses (m, k, n) = {refused}")
+
+
+def timing_slice(hub_eng, pb, pw):
+    """Kernels E, D, m3, m3b and R and the spoke product at the shapes of
+    their paths, kernel vs plain, each with its bound (E's and m3's as
+    prof_breakdown's and prof_window's results `pb` and `pw` gave them)."""
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore,
+                                          cuda_window, fetch, hubcore)
+    from graphminer_tpu_torch.scripts import prof_breakdown, prof_window
+    from graphminer_tpu_torch.utils.profiling import bound_ms
+    dev = torch.device("cuda")
+    res = {}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    # E: the rmat18 tail groups
+    calls = tail_calls(hub_eng)
+    k, p, kv, pv = in_turns(
+        lambda: hub_eng.tail_partials().sum(),
+        lambda: sum((cuda_hubcore.hub_tail_count_plain(*a, **kw)
+                     for a, kw in calls), zero))
+    compare("hub_tail_count", kv, pv, "rmat18 tail groups")
+    b_ms, b_by = pb["tail"]["bound"]
+    res["hub_tail_count"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+    say(f"[{CARD}] hub_tail_count at rmat18 ({len(calls)} groups, "
+        f"{hub_eng.n_tail_tasks} tasks): kernel {k:.3f} ms, plain {p:.3f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}, {pb['tail']['bytes']} bytes)")
+
+    # the spoke product: torch._int_mm (a library call, no kernel of ours);
+    # first the layout and shape rules that hubcore relies on, then its
+    # product against the f32 one on the first slab
+    int_mm_rules()
+    lay = hub_eng.layout
+    cpad = lay.words * 32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xt = hubcore._expand_bits(hub_eng.spoke[:hubcore.MAX_SLAB], cpad,
+                              transpose=True)
+    exact = torch.equal(torch._int_mm(xt, xt.t()),
+                        (xt.float() @ xt.t().float()).to(torch.int32))
+    check(exact, "torch._int_mm Gram != the f32 Gram on the first slab")
+    del xt
+    s_ms, spoke = time_ms(lambda: hub_eng.core_partials().sum())
+    ops = 2 * cpad * cpad * hub_eng.spoke.shape[0]
+    sb_ms, sb_by = bound_ms(hub_eng.spoke.numel() * 4, ops)
+    res["spoke"] = dict(ms=s_ms, bound_ms=sb_ms, bound_by=sb_by, ops=ops)
+    say(f"[{CARD}] spoke product (torch._int_mm, {hub_eng.spoke.shape[0]} "
+        f"rows, Gram == f32 Gram on slab 1): {s_ms:.3f} ms, bound "
+        f"{sb_ms:.4f} ms ({sb_by}, {ops:.4e} int8 ops); count {int(spoke)}")
+
+    # D: prof_breakdown's eight shapes; the library yardstick is one
+    # embedding_bag over the whole index list (exact in float64 below 2^53)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for w in prof_breakdown.FETCH_WIDTHS:
+        for n in prof_breakdown.FETCH_COUNTS:
+            idx, tbl = prof_breakdown.fetch_inputs(w, n, 0, dev)
+            t64 = tbl.double()
+            k, p, kv, pv = in_turns(
+                lambda: fetch.fetch_rows_sum(idx, tbl, prof_breakdown.N_BUF),
+                lambda: fetch.fetch_rows_sum_plain(idx, tbl))
+            compare("fetch_rows_sum", kv, pv, f"w={w} n={n}")
+            lib_ms, lv = time_ms(
+                lambda: F.embedding_bag(idx[None], t64, mode="sum"))
+            check(torch.equal(lv.to(torch.int64), kv.to(torch.int64)),
+                  f"embedding_bag != fetch_rows_sum at w={w} n={n}")
+            b_ms, _ = prof_breakdown.fetch_bound(idx, w)
+            for key, v in (("ms", k), ("plain_ms", p), ("bound_ms", b_ms),
+                           ("library_ms", lib_ms)):
+                tot[key] += v
+            say(f"[{CARD}] fetch_rows_sum w={w} n={n}: kernel {k:.4f} ms, "
+                f"plain {p:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms (bytes)")
+            del t64
+    res["fetch_rows_sum"] = dict(tot, bound_by="bytes")
+
+    # m3, m3b: prof_window's defaults
+    span = prof_window.SPAN
+    table, starts, lidx, srcs = (
+        torch.from_numpy(a).to(dev) for a in prof_window.make_inputs(
+            prof_window.T, prof_window.CAP, span, prof_window.W))
+    b_ms, b_by = pw["bound_ms"], pw["bound_by"]
+    for name, r in WINDOW_ROWS.items():
+        k, p, kv, pv = in_turns(
+            lambda: cuda_window.window_count(srcs, table, starts, lidx,
+                                             span=span, rows_per_step=r),
+            lambda: cuda_window.window_count_plain(srcs, table, starts, lidx,
+                                                   span=span))
+        compare(name, kv, pv, "prof_window defaults")
+        res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        say(f"[{CARD}] {name} at prof_window defaults: kernel {k:.3f} ms, "
+            f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {pw['bytes']} "
+            f"bytes)")
+    del srcs
+
+    # R: [8, 128]; torch's own x * 2 is both the plain version and the
+    # library call
+    x = torch.ones((8, 128), dtype=torch.int32, device=dev)
+    k, p, kv, pv = in_turns(lambda: cuda_check.times_two(x),
+                            lambda: cuda_check.times_two_plain(x))
+    compare("times_two", kv, pv, "[8, 128]")
+    lib_ms, _ = time_ms(lambda: torch.mul(x, 2))
+    b_ms, b_by = bound_ms(2 * x.numel() * 4)
+    res["times_two"] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms)
+    say(f"[{CARD}] times_two [8, 128]: kernel {k:.4f} ms, plain {p:.4f} "
+        f"ms, torch.mul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return res
+
+
 def main():
     check_environment()
     build_kernels()
+    launches = run_launch_check()
     kernel_checks_random()
     kernel_checks_rmat14()
 
     g = write_rmat18()
-    launches = {"stream_bucket_count": run_cli()}
+    launches["stream_bucket_count"] = run_cli()
     ring_eng, ring_launches = run_ring(g)
     launches.update(ring_launches)
+    hub_eng, hub_launches = run_triangle_engine(g)
+    launches.update(hub_launches)
+    pb, pb_launches = run_prof_breakdown()
+    launches["fetch_rows_sum"] = pb_launches["fetch_rows_sum"]
+    pw, pw_launches = run_prof_window()
+    launches.update(pw_launches)
 
     from graphminer_tpu_torch.ops.stream import StreamEngine
     t0 = time.perf_counter()
@@ -348,11 +733,14 @@ def main():
     say(f"StreamEngine rmat18 build: {time.perf_counter() - t0:.1f} s, "
         f"{len(stream_eng.stream.buckets)} buckets")
     res = timing(stream_eng, ring_eng)
+    del stream_eng
+    res.update(timing_slice(hub_eng, pb, pw))
     torch.cuda.synchronize()
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
-             max_abs_err=MAX_ERR[k], ms=res[k][0], plain_ms=res[k][1])
+             max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys})
         for k in KERNELS]}))
     say(CARD)
     say(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """graphminer_tpu_torch — the PyTorch and CUDA port of graphminer_tpu.
 
 A second package beside the JAX one (which stays the reference). It runs the
-exact triangle-count fast path — the stream engine and the ring engine —
-on an NVIDIA H100 through hand-written CUDA kernels for sm_90a (csrc/), and
-on the CPU through their plain PyTorch versions. It imports torch and never
+exact triangle-count fast path — the stream, ring and hub-core engines —
+and the probe scripts of scripts/ on an NVIDIA H100 through hand-written
+CUDA kernels for sm_90a (csrc/), and on the CPU through their plain PyTorch
+versions. It imports torch and never
 jax. Counts accumulate in int64; there is no global x64 switch and no
 compile cache. ROADMAP.md lists what is still to be ported.
 """

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources are compiled by nvcc for sm_90a into one shared library with a
-plain C interface, which is loaded with ctypes (no PyTorch headers, so a
-build takes seconds):
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which is loaded with ctypes (no PyTorch headers, so a build takes
+seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/libgm_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c csrc/<name>.cu -o _build/<name>.<pid>.o   (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libgm_kernels_<hash>.so _build/*.<pid>.o
 
 The library lands in the package's git-ignored _build/ directory under a
 name keyed by a hash of the sources and flags, so an edited source is
@@ -32,8 +35,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -52,6 +56,18 @@ _SIGNATURES = {
     # ta, na, wa, tb, nb, wb, sa, sb, n, partials, n_blocks, stream
     "gm_ring_tail_pairs": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
                            _VP, _I64, _VP],
+    # src_rows, ns, dst_rows, nd, row_w, words, wa, wb, su, dv, n, partials,
+    # n_blocks, stream
+    "gm_hub_tail_count": [_VP, _I64, _VP, _I64, _I64, _I64, _I64, _I64, _VP,
+                          _VP, _I64, _VP, _I64, _VP],
+    # idx, t, table, v, w, n_buf, partials, n_blocks, stream
+    "gm_fetch_rows_sum": [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _I64, _VP],
+    # src, table, nd, starts, lidx, nck, cap, w, span, wb, rows_per_step,
+    # partials, stream
+    "gm_window_count": [_VP, _VP, _I64, _VP, _VP, _I64, _I64, _I64, _I64,
+                        _I64, _I64, _VP, _VP],
+    # x, o, n, n_blocks, stream
+    "gm_times_two": [_VP, _VP, _I64, _I64, _VP],
 }
 
 
@@ -81,23 +97,52 @@ def _nvcc() -> str:
 
 
 def build(path: str) -> None:
-    """Compile csrc/*.cu into `path`; raises with nvcc's output on failure."""
+    """Compile csrc/*.cu into `path`, one nvcc per source in parallel, then
+    link; raises with nvcc's output on failure."""
     global BUILD_INFO
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(path + ".lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if os.path.exists(path):
             return
-        tmp = f"{path}.{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        tag = str(os.getpid())
         t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
-                               f"\n{r.stderr}")
-        os.replace(tmp, path)
+        objs, procs, logs, failed = [], [], [], []
+        try:
+            for src in _sources():
+                name = os.path.basename(src)
+                obj = os.path.join(BUILD_DIR, f"{name}.{tag}.o")
+                objs.append(obj)
+                procs.append((name, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            for name, p in procs:
+                out, _ = p.communicate(timeout=600)
+                logs.append(f"== {name}\n{out}")
+                if p.returncode != 0:
+                    failed.append(name)
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n"
+                                   + "\n".join(logs))
+            tmp = f"{path}.{tag}.tmp"
+            r = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                                   f"{r.stdout}\n{r.stderr}")
+            os.replace(tmp, path)
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         BUILD_INFO = {"seconds": time.perf_counter() - t0,
-                      "log": r.stdout + r.stderr}
+                      "log": "\n".join(logs)}
 
 
 def kernels():

@@ -35,3 +35,16 @@ def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
 
 def n_blocks(work_items: int) -> int:
     return max(1, min(GRID_CAP, -(-work_items // BLOCK)))
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 words read as uint32, as int64.
+
+    Torch has no popcount op, sign-extends int32 on widening and shifts
+    int32 arithmetically, so the word is widened to int64 and masked to
+    its low 32 bits before the SWAR reduction (bit 31 counts as one bit)."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF

@@ -27,8 +27,7 @@ import torch
 
 from ..types import SENTINEL
 from . import _build
-from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda
-from .hubcore import popcount32
+from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
 
 #: tasks per launch of kernel C times its row width stays below 2^31
 MAX_ELEMS = 1 << 30

@@ -24,8 +24,7 @@ import torch
 
 from ..types import SENTINEL
 from . import _build
-from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda
-from .hubcore import popcount32
+from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
 
 #: 16-byte chunks per launch (the kernel's flat index stays below 2^31)
 MAX_CHUNKS = 1 << 30

@@ -1,0 +1,165 @@
+"""Where do the hub-core engine's rmat18 milliseconds go?
+
+The port of scripts/prof_breakdown.py. Builds TriangleEngine
+(ops/hubcore.py) on RMAT scale 18, edge factor 16, seed 7, times its two
+halves apart — the tail groups (kernel E, ops/cuda_hubcore.py) and the spoke
+product (torch._int_mm; on its first slab, also the bit expansion and the
+product apart) — and then calibrates the random-row fetch rate of
+kernel D (ops/fetch.py) at the row widths the tail count reads: a 2^18-row
+int32 table of width W ∈ {8, 32, 128, 256}, T ∈ {2^16, 2^19} random indices,
+n_buf = 16. Each D result is held against the plain version, exactly.
+
+    python -m graphminer_tpu_torch.scripts.prof_breakdown [--device cuda|cpu]
+
+Times are medians of CUDA-event timings after warm-up, each printed with
+the least time an H100 could take for the same work. The table values
+(0..99) and indices come from torch generators seeded 0 and 1, 2, ...
+Left out: the jnp.roll variants (they defeated a TPU runtime's
+memoization) and the try/except around the Pallas fetch: a failing kernel
+raises here and the process exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..device import resolve_device
+from ..types import SENTINEL
+from ..io.synth import rmat
+from ..ops import hubcore
+from ..ops.fetch import fetch_rows_sum, fetch_rows_sum_plain
+from ..utils.profiling import bound_ms, time_ms
+
+SCALE = 18
+FETCH_ROWS = 1 << 18
+FETCH_WIDTHS = (8, 32, 128, 256)
+FETCH_COUNTS = (1 << 16, 1 << 19)
+N_BUF = 16
+REPS = 5
+
+
+def fetch_inputs(w: int, n: int, i: int, dev: torch.device):
+    """(idx int32 [n], table int32 [FETCH_ROWS, w]) for the i-th index set."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    tbl = torch.randint(0, 100, (FETCH_ROWS, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    g.manual_seed(i + 1)
+    idx = torch.randint(0, FETCH_ROWS, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return idx, tbl
+
+
+def fetch_bound(idx: torch.Tensor, w: int):
+    """bound_ms of D: idx, the distinct rows it names and the output."""
+    rows = int(torch.unique(idx).numel())
+    return bound_ms(4 * (idx.numel() + rows * w + w))
+
+
+def tail_bytes(eng) -> int:
+    """The bytes kernel E must move for eng's tail groups: each row that a
+    real task names (SENTINEL padding names none), read once as far as the
+    widest prefix any of its groups reads (words + the clamped class width,
+    words alone in a popcount-only group, as hub_tail_count clamps them),
+    the real task ids, and one int64 count per group."""
+    tab, words = eng.tables, eng.layout.words
+    wt = tab.src_rows.shape[1] - words
+    need = [torch.zeros(t.shape[0], dtype=torch.int64, device=t.device)
+            for t in (tab.src_rows, tab.dst_rows)]
+    n_tasks = 0
+    for (s, d), (wa, wb, _ck) in zip(eng.group_arrays, eng.spec):
+        s, d = s.reshape(-1), d.reshape(-1)
+        ok = ((s >= 0) & (s < need[0].numel())
+              & (d >= 0) & (d < need[1].numel()))
+        wa_, wb_ = min(wa, wt), min(wb, wt)
+        if wa_ == 0 or wb_ == 0:
+            wa_ = wb_ = 0
+        for n, ids, w in ((need[0], s[ok].long(), words + wa_),
+                          (need[1], d[ok].long(), words + wb_)):
+            n[ids] = torch.clamp(n[ids], min=w)
+        n_tasks += int(ok.sum())
+    return 4 * (int(need[0].sum()) + int(need[1].sum()) + 2 * n_tasks) \
+        + 8 * len(eng.spec)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    dev = resolve_device(a.device)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"device: {kind}", flush=True)
+    t0 = time.perf_counter()
+    g = rmat(SCALE, 16, seed=7)
+    eng = hubcore.TriangleEngine(g, device=dev)
+    lay = eng.layout
+    prep = time.perf_counter() - t0
+    print(f"prep={prep:.1f}s V={eng.g.n_vertices} E={eng.g.n_edges} "
+          f"tail_tasks={eng.n_tail_tasks} words={lay.words} "
+          f"wt_pad={lay.wt_pad} core={lay.core_size} "
+          f"spoke_rows={eng.spoke.shape[0]}", flush=True)
+    # (wa, wb, chunk, padded tasks, tasks) per tail group
+    groups = [(wa, wb, ck, int(s.numel()), int((s != SENTINEL).sum()))
+              for (s, _), (wa, wb, ck) in zip(eng.group_arrays, eng.spec)]
+    print("groups (wa, wb, chunk, padded, tasks):", groups, flush=True)
+    res = {"device": kind, "prep_s": prep, "groups": groups}
+
+    # --- tail only (kernel E) ---
+    tail_ms, tail = time_ms(lambda: eng.tail_partials().sum(), dev, REPS)
+    t_bytes = tail_bytes(eng)
+    res["tail"] = {"ms": tail_ms, "count": int(tail), "bytes": t_bytes,
+                   "bound": bound_ms(t_bytes)}
+    print(f"tail: {tail_ms:.3f} ms count={int(tail)} (H100 bound "
+          f"{res['tail']['bound'][0]:.4f} ms, {t_bytes} bytes)",
+          flush=True)
+
+    # --- spoke only (torch._int_mm) ---
+    spoke_ms, spoke = time_ms(lambda: eng.core_partials().sum(), dev, REPS)
+    cpad = lay.words * 32
+    ops = 2 * cpad * cpad * (eng.spoke.shape[0] if lay.core_size else 0)
+    res["spoke"] = {"ms": spoke_ms, "count": int(spoke), "ops": ops,
+                    "bound": bound_ms(eng.spoke.numel() * 4, ops)}
+    print(f"spoke: {spoke_ms:.3f} ms count={int(spoke)} (H100 bound "
+          f"{res['spoke']['bound'][0]:.4f} ms, {ops:.3e} int8 ops)",
+          flush=True)
+    if lay.core_size:
+        # its parts on the first slab: the bit expansion, then the product
+        slab = eng.spoke[:hubcore.MAX_SLAB]
+        exp_ms, xt = time_ms(
+            lambda: hubcore._expand_bits(slab, cpad, transpose=True), dev,
+            REPS)
+        mm_ms, _ = time_ms(lambda: torch._int_mm(xt, xt.t()), dev, REPS)
+        slab_ops = 2 * cpad * cpad * xt.shape[1]
+        res["spoke"]["slab"] = {"rows": xt.shape[1], "expand_ms": exp_ms,
+                                "int_mm_ms": mm_ms,
+                                "int_mm_bound": bound_ms(0, slab_ops)}
+        print(f"spoke slab of {xt.shape[1]} rows: expand {exp_ms:.3f} ms, "
+              f"_int_mm {mm_ms:.3f} ms (H100 bound "
+              f"{res['spoke']['slab']['int_mm_bound'][0]:.4f} ms)",
+              flush=True)
+        del xt
+
+    # --- kernel D row-fetch calibration ---
+    res["fetch"] = []
+    for w in FETCH_WIDTHS:
+        for n in FETCH_COUNTS:
+            idx, tbl = fetch_inputs(w, n, 0, dev)
+            got = fetch_rows_sum(idx, tbl, n_buf=N_BUF)
+            want = fetch_rows_sum_plain(idx, tbl)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"fetch w={w} n={n}: kernel != plain")
+            ms, _ = time_ms(lambda: fetch_rows_sum(idx, tbl, n_buf=N_BUF),
+                            dev, REPS)
+            b_ms, _ = fetch_bound(idx, w)
+            res["fetch"].append({"w": w, "n": n, "ms": ms, "bound_ms": b_ms})
+            print(f"fetch w={w:4d} n={n:7d}: {ms:8.3f} ms "
+                  f"{ms / n * 1e6:7.2f} ns/row {n * w * 4 / ms / 1e6:8.2f} "
+                  f"GB/s (H100 bound {b_ms:.4f} ms)", flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -5,12 +5,15 @@ The counterpart of graphminer_tpu/utils/profiling.py. Parity: include/timer.h
 and the per-set-op counters (common.h:72-74). A phase that runs on a CUDA
 device is timed with torch.cuda.Event pairs on the current stream, so it
 measures device time and not the host's enqueue; a CPU phase uses the host
-clock. Left out: xla_trace (torch.profiler is the tool on the card).
+clock. time_ms times a repeated call the same way, and bound_ms gives the
+least time an H100 SXM could take for a given work. Left out: xla_trace
+(torch.profiler is the tool on the card).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -84,3 +87,44 @@ class Profiler:
 # process-wide default profiler (opt-in; hot paths don't touch it unless
 # callers pass it down)
 PROFILER = Profiler()
+
+
+#: published H100 SXM peaks at its 700 W limit (NVIDIA data sheet): HBM3
+#: bytes/s, and dense int8 tensor-core operations/s
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_INT8_OPS_PER_S = 1.979e15
+
+
+def bound_ms(n_bytes: float, n_int8_ops: float = 0.0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the int8 operations over the tensor cores' peak."""
+    t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = n_int8_ops / H100_INT8_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, device, reps: int = 11):
+    """Median time of fn() in ms over `reps` calls after two warm-up calls,
+    and fn's first result. On a CUDA device each call is timed by a pair of
+    CUDA events (device time, synchronized after each call); on the CPU by
+    the host clock."""
+    val = fn()
+    fn()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    ts = []
+    for _ in range(reps):
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), val

@@ -1,4 +1,5 @@
-"""Kernels A, B and C against their plain PyTorch versions on a CUDA card.
+"""Kernels A-E, m3, m3b and R against their plain PyTorch versions on a
+CUDA card.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from graphminer_tpu_torch.io.synth import rmat
-from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
+from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore, cuda_ring,
+                                      cuda_stream, cuda_window, fetch)
+from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
 
@@ -30,6 +33,7 @@ def dev():
 
 def words(rng, *shape):
     return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
 
 
 def tails(rng, rows, width):
@@ -78,7 +82,60 @@ def test_ring_tail_pairs(dev, wa, wb):
         int(cuda_ring.ring_tail_pairs_plain(*args))
 
 
+@pytest.mark.parametrize("w", [8, 6, 128, 256])
+@pytest.mark.parametrize("n_buf", [1, 16])
+def test_fetch_rows_sum(dev, w, n_buf):
+    rng = np.random.default_rng(w * n_buf)
+    table = rng.integers(-1000, 1000, (3000, w)).astype(np.int32)
+    idx = rng.integers(-3, 3003, 20000).astype(np.int32)
+    table, idx = torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+    before = fetch.fetch_rows_sum.launches
+    got = fetch.fetch_rows_sum(idx, table, n_buf)
+    assert fetch.fetch_rows_sum.launches == before + 1
+    assert torch.equal(got, fetch.fetch_rows_sum_plain(idx, table))
+
+
+@pytest.mark.parametrize("nw,wt,wa,wb", [(128, 48, 64, 16), (128, 48, 16, 16),
+                                         (8, 8, 0, 0), (32, 16, 16, 1024)])
+def test_hub_tail_count(dev, nw, wt, wa, wb):
+    rng = np.random.default_rng(nw + wa)
+    sr = np.concatenate([words(rng, 400, nw), tails(rng, 400, wt)], 1)
+    dr = np.concatenate([words(rng, 200, nw), tails(rng, 200, wt)], 1)
+    su = rng.integers(-2, 402, 5000).astype(np.int32)
+    su[::13] = SENTINEL
+    dv = np.sort(rng.integers(-2, 202, 5000)).astype(np.int32)
+    args = [torch.from_numpy(x).to(dev) for x in (sr, dr, su, dv)]
+    kw = dict(words=nw, wa=wa, wb=wb)
+    assert int(cuda_hubcore.hub_tail_count(*args, **kw)) == \
+        int(cuda_hubcore.hub_tail_count_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("rows_per_step", [1, 8])
+@pytest.mark.parametrize("w,span", [(8, 256), (128, 1024), (16, 4096)])
+def test_window_count(dev, rows_per_step, w, span):
+    rng = np.random.default_rng(w + span)
+    nck, cap, nd = 6, 1024, 5000
+    args = [torch.from_numpy(x).to(dev) for x in (
+        words(rng, nck * cap, w).reshape(nck, cap, w), words(rng, nd, w),
+        rng.integers(-50, nd + 50, nck).astype(np.int32),
+        rng.integers(-2, span + 2, (nck, cap)).astype(np.int32))]
+    assert torch.equal(
+        cuda_window.window_count(*args, span=span,
+                                 rows_per_step=rows_per_step),
+        cuda_window.window_count_plain(*args, span=span))
+
+
+def test_times_two(dev):
+    x = torch.from_numpy(words(np.random.default_rng(0), 8, 128)).to(dev)
+    assert torch.equal(cuda_check.times_two(x), cuda_check.times_two_plain(x))
+
+
 def test_engines_rmat14_golden(dev):
     g = rmat(14, 16, seed=7)
     assert StreamEngine(g, device=dev).count() == 2_860_691
     assert RingEngine(g, device=dev).count() == 2_860_691
+    eng = TriangleEngine(g, device=dev)
+    before = cuda_hubcore.hub_tail_count.launches
+    assert eng.count() == 2_860_691
+    assert cuda_hubcore.hub_tail_count.launches > before
+    assert eng.count_tail() + eng.count_core() == 2_860_691
