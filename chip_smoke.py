@@ -13,19 +13,22 @@ no result line) when any phase fails:
      launches kernel R through the port's launch_check script;
   3. holds kernels A, B, C, D, E, m3, m3b and R against their plain
      PyTorch versions on the card, exactly: random inputs over every width
-     class, then the real buckets and tail groups of rmat14 builds (whose
-     counts must be 2,860,691, also through TriangleEngine);
+     class, A and C also as one grouped launch over random multi-bucket
+     sets, then the real buckets and tail groups of rmat14 builds, one by
+     one and grouped (counts 2,860,691, also through TriangleEngine);
   4. runs `python -m graphminer_tpu_torch tc <rmat18> --fast --json
-     --profile` and checks its count and that kernel A launched;
-  5. runs the ring engine on the same graph and checks its count and that
-     kernels B and C launched;
+     --profile` and checks its count and that kernel A launched once;
+  5. runs the ring engine on the same graph and checks its count, that
+     kernel B launched and that kernel C launched once;
   6. runs TriangleEngine on the same graph (count, tail + core split,
      kernel E launched), the port's prof_breakdown at rmat18 (kernels E and
      D) and prof_window at its defaults (m1 = m2 = m3 = m3b), in process;
   7. times every kernel with CUDA events (median of 11 after warm-up),
      kernel and plain version side by side, each beside the least time an
-     H100 could take for the same work, and the spoke product
-     (torch._int_mm) against its operations bound.
+     H100 could take for the same work (A and C as the engines' single
+     launch, A also over groups of the rmat18 buckets), the spoke product
+     (torch._int_mm) against its operations bound, and the device-busy
+     share of stream counts from torch.profiler.
 
 Each path of phases 2 and 4-6 runs with every launch count set to 0 just
 before it, and its counts are read just after. The line before the last is
@@ -275,8 +278,60 @@ def kernel_checks_random():
                     f"random wa={wa} wb={wb}")
             n_cases += 1
     n_cases += kernel_checks_random_slice2(rng, t)
+    n_cases += grouped_checks_random(rng, t)
     torch.cuda.synchronize()
     say(f"kernel == plain on random inputs: {n_cases} cases exact")
+
+
+def grouped_checks_random(rng, t):
+    """A and C as one launch over random multi-bucket sets (3-12 buckets of
+    mixed ws/wtv/wta with a one-row bucket, widths 2 and 2048, an empty
+    bucket; tail tables up to 4096 wide with an empty tail bucket) against
+    the sum of the plain versions; returns the number of cases."""
+    from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
+    n_cases = 0
+    for n_b in (3, 7, 12):
+        specs = [(1, 2048, 8, 0, 0), (int(rng.integers(1, 300)), 2, 128, 48,
+                                      32), (0, 32, 8, 16, 8)]
+        for _ in range(n_b - 3):
+            ws = int(rng.choice([8, 32, 128]))
+            wtv, wta = [(0, 0), (16, 8), (16, 16), (48, 32), (48, 48)][
+                int(rng.integers(5))]
+            width = int(rng.choice([2, 8, 32, 128, 512, 2048]))
+            specs.append((int(rng.integers(1, max(2, 8192 // width))), width,
+                          ws, wtv, wta))
+        buckets = []
+        for n, width, ws, wtv, wta in specs:
+            d = np.concatenate([_words(rng, (n, ws)),
+                                _tails(rng, n, wtv, wtv)], axis=1)
+            s = np.concatenate([_words(rng, (n * width, ws)),
+                                _tails(rng, n * width, wta, wta)], axis=1)
+            s[rng.random(n * width) < 0.2, ws:] = SENTINEL
+            buckets.append((t(d), t(s.reshape(n, width, ws + wta)), ws, wtv))
+        plan = cuda_stream.plan_stream(buckets)
+        compare("stream_bucket_count",
+                cuda_stream.stream_count_all(plan).sum(),
+                cuda_stream.stream_count_all_plain(plan).sum(),
+                f"grouped random, {n_b} buckets")
+        n_cases += 1
+        tables = {w: t(_tails(rng, 120, w, w)) for w in (8, 16, 64, 2048,
+                                                         4096)}
+        groups = []
+        for i in range(n_b):
+            wa, wb = (int(rng.choice(list(tables))) for _ in range(2))
+            # the plain compare of a task is wa x wb: fewer wide pairs
+            n = 0 if i == 1 else int(rng.integers(1, 3000)) // (
+                1 + wa * wb // 65536)
+            sa = rng.integers(-2, 122, size=n).astype(np.int32)
+            sb = rng.integers(-2, 122, size=n).astype(np.int32)
+            sa[rng.random(n) < 0.05] = SENTINEL
+            groups.append((tables[wa], tables[wb], t(sa), t(sb)))
+        plan = cuda_ring.plan_tail_pairs(groups)
+        compare("ring_tail_pairs", cuda_ring.ring_tail_pairs_all(plan).sum(),
+                cuda_ring.ring_tail_pairs_all_plain(plan).sum(),
+                f"grouped random, {n_b} tail buckets")
+        n_cases += 1
+    return n_cases
 
 
 def kernel_checks_random_slice2(rng, t):
@@ -382,13 +437,23 @@ def kernel_checks_rmat14():
                 hub_tail_count_plain(*args, **kw),
                 f"rmat14 tail group {kw}")
     sizes["hub_tail_count"] = len(he.spec)
+    from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
+    compare("stream_bucket_count",
+            cuda_stream.stream_count_all(se.plan).sum(),
+            cuda_stream.stream_count_all_plain(se.plan).sum(),
+            "rmat14 grouped launch")
+    compare("ring_tail_pairs",
+            cuda_ring.ring_tail_pairs_all(re_.tail_plan).sum(),
+            cuda_ring.ring_tail_pairs_all_plain(re_.tail_plan).sum(),
+            "rmat14 grouped launch")
     torch.cuda.synchronize()
     s, r, h = se.count(), re_.count(), he.count()
     check(s == GOLDEN[14] and r == GOLDEN[14] and h == GOLDEN[14],
           f"rmat14 counts stream {s} ring {r} hub-core {h} != {GOLDEN[14]}")
     ht, hc = he.count_tail(), he.count_core()
     check(ht + hc == h, f"rmat14 hub-core tail {ht} + core {hc} != {h}")
-    say(f"rmat14: kernel == plain on every bucket and tail group {sizes}; "
+    say(f"rmat14: kernel == plain on every bucket and tail group {sizes} "
+        f"and as grouped launches of A and C; "
         f"stream = ring = hub-core = {s} (tail {ht} + core {hc})")
 
 
@@ -430,7 +495,8 @@ def run_cli():
         f"(wall {time.perf_counter() - t0:.1f} s)")
     check(out["total"] == GOLDEN[18],
           f"CLI total {out['total']} != {GOLDEN[18]}")
-    check(launches > 0, "kernel A was not launched by the CLI's main path")
+    check(launches == 1, f"kernel A launched {launches} times by the CLI's "
+          "count, not once")
     return launches
 
 
@@ -442,6 +508,8 @@ def run_ring(g):
     total, launches = run_path("RingEngine rmat18 count", eng.count,
                                ["ring_phase_c", "ring_tail_pairs"])
     say(f"RingEngine rmat18: count={total} build_s={t_build:.1f}")
+    check(launches["ring_tail_pairs"] == 1,
+          f"kernel C launched {launches['ring_tail_pairs']} times, not once")
     check(total == GOLDEN[18], f"ring count {total} != {GOLDEN[18]}")
     return eng, launches
 
@@ -479,11 +547,12 @@ def gathered_bytes(pairs):
     return total
 
 
-def kernel_bytes(name, calls):
+def kernel_bytes(name, calls, n_partials=None):
     """The bytes a kernel's calls must move: every streamed input and every
-    gathered table row read once, one int64 partial written per call."""
+    gathered table row read once, one int64 partial written per call (or
+    n_partials of them, for one grouped launch)."""
     nb = lambda t: t.numel() * t.element_size()
-    out = 8 * len(calls)
+    out = 8 * (len(calls) if n_partials is None else n_partials)
     if name == "stream_bucket_count":
         return out + sum(nb(a[0]) + nb(a[1]) for a, _ in calls)
     if name == "ring_phase_c":                 # table, src_bm, dst_loc
@@ -497,22 +566,38 @@ def kernel_bytes(name, calls):
 
 
 def timing(stream_eng, ring_eng):
-    """Per-kernel and per-engine device time, kernel vs plain, in turns."""
+    """Per-kernel and per-engine device time, kernel vs plain, in turns: A
+    and C as the engines' one grouped launch, B as its per-bucket calls."""
+    from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
     from graphminer_tpu_torch.utils.profiling import bound_ms
     res = {}
     zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    splan, tplan = stream_eng.plan, ring_eng.tail_plan
+    grouped = {
+        "stream_bucket_count": (
+            lambda: cuda_stream.stream_count_all(splan),
+            lambda: cuda_stream.stream_count_all_plain(splan)),
+        "ring_tail_pairs": (
+            lambda: cuda_ring.ring_tail_pairs_all(tplan),
+            lambda: cuda_ring.ring_tail_pairs_all_plain(tplan))}
     for name, (kern, plain, calls) in bucket_calls(stream_eng,
                                                    ring_eng).items():
-        k, p, kv, pv = in_turns(
-            lambda: sum((kern(*a, **kw) for a, kw in calls), zero),
-            lambda: sum((plain(*a, **kw) for a, kw in calls), zero))
-        compare(name, kv, pv, "rmat18 engine share")
-        b_ms, b_by = bound_ms(kernel_bytes(name, calls))
+        if name in grouped:
+            k, p, kv, pv = in_turns(*grouped[name])
+            n_parts, what = kv.numel(), "1 launch"
+        else:
+            k, p, kv, pv = in_turns(
+                lambda: sum((kern(*a, **kw) for a, kw in calls), zero),
+                lambda: sum((plain(*a, **kw) for a, kw in calls), zero))
+            n_parts, what = None, f"{len(calls)} launches"
+        compare(name, kv.sum(), pv.sum(), "rmat18 engine share")
+        b_ms, b_by = bound_ms(kernel_bytes(name, calls, n_parts))
         res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
-        say(f"[{CARD}] {name} at rmat18 ({len(calls)} buckets): kernel "
-            f"{res[name]['ms']:.3f} ms, plain {res[name]['plain_ms']:.3f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by})")
+        say(f"[{CARD}] {name} at rmat18 ({len(calls)} buckets, {what}): "
+            f"kernel {k:.4f} ms, plain {p:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+    stream_groups(stream_eng)
     engines = (
         ("stream", stream_eng, stream_eng.stream.nbytes(),
          [res["stream_bucket_count"]]),
@@ -528,7 +613,85 @@ def timing(stream_eng, ring_eng):
             f"edge tasks/s {eng.n_edges / (e_ms / 1e3):.4e} kernel, "
             f"{eng.n_edges / (p_ms / 1e3):.4e} plain; "
             f"{eng.n_edges} edge tasks; layout {nbytes} bytes")
+    busy_share("stream", stream_eng, {"A": "stream_count_kernel"})
+    busy_share("ring", ring_eng, {"B": "ring_phase_c_kernel",
+                                  "C": "ring_tail_pairs_kernel"})
     return res
+
+
+#: groups of the rmat18 stream buckets that stream_groups times
+STREAM_GROUPS = (("no dst tail", lambda b: b.wtv == 0),
+                 ("dst tail", lambda b: b.wtv > 0),
+                 ("width >= 32", lambda b: b.width >= 32),
+                 ("width < 32", lambda b: b.width < 32))
+
+
+def stream_groups(stream_eng, top=4):
+    """Kernel A, one launch each, over groups of the stream buckets (with
+    and without a dst tail; of width >= 32, whose tiles' dst rows fit the
+    kernel's shared-memory staging buffer, and narrower) and over the `top`
+    largest buckets alone, each held against the plain version and printed
+    beside its bytes and bound; then the share of 16-byte src tail chunks
+    that hold SENTINEL padding alone (they cost the kernel no search)."""
+    from graphminer_tpu_torch.ops import cuda_stream
+    from graphminer_tpu_torch.utils.profiling import bound_ms
+    bk = stream_eng.stream.buckets
+    largest = sorted(bk, key=lambda b: -b.src_rows.numel())[:top]
+    for label, sel in STREAM_GROUPS + tuple(
+            (f"bucket {b.spec}", lambda x, b=b: x is b) for b in largest):
+        bs = [b for b in bk if sel(b)]
+        plan = cuda_stream.plan_stream(
+            [(b.dst_rows, b.src_rows, b.ws, b.wtv) for b in bs])
+        ms, kv = time_ms(lambda: cuda_stream.stream_count_all(plan))
+        compare("stream_bucket_count", kv.sum(),
+                cuda_stream.stream_count_all_plain(plan).sum(),
+                f"rmat18 group {label}")
+        nbytes = sum((b.dst_rows.numel() + b.src_rows.numel()) * 4
+                     for b in bs)
+        say(f"[{CARD}] stream_count rmat18 {label}: {len(bs)} buckets, "
+            f"{nbytes} B, {ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, bound "
+            f"{bound_ms(nbytes)[0]:.4f} ms")
+    n = pad = 0
+    for b in bk:
+        if b.wtv and b.wta:
+            c = b.src_rows[:, :, b.ws:].reshape(-1, 4)
+            n += c.shape[0]
+            pad += int((c == SENTINEL).all(dim=1).sum())
+    say(f"stream rmat18 src tail chunks: {n}, SENTINEL padding alone: "
+        f"{pad / max(n, 1):.4f}")
+
+
+def busy_share(label, eng, kernels, counts=5):
+    """The device-busy share of `counts` engine counts: the device time of
+    the kernels and copies torch.profiler records, over the window that two
+    CUDA events around the counts measure; and the device time of each of
+    `kernels` ({letter: name of its __global__ function}) per count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.count()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        for _ in range(counts):
+            eng.count()
+        b.record()
+        b.synchronize()
+    window_us = a.elapsed_time(b) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        say(f"[{CARD}] {label} count device-busy share: not measured "
+            "(torch.profiler recorded no device event)")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    per = {k: sum(e.time_range.elapsed_us() for e in dev if fn in e.name)
+           / counts for k, fn in kernels.items()}
+    say(f"[{CARD}] {label} count device-busy share over {counts} counts: "
+        f"{busy_us / window_us:.4f} (device events {busy_us:.1f} us in a "
+        f"{window_us:.1f} us window, {len(dev)} events); device us per "
+        f"count: " + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
 
 # --------------------------------------------------------------------------

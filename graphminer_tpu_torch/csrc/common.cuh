@@ -47,6 +47,33 @@ __device__ __forceinline__ bool in_sorted(const int32_t* __restrict__ row,
   return lo < n && __ldg(row + lo) == x;
 }
 
+// How many of the K ids x[0..K) occur in row[0:n] (sorted ascending, no
+// repeated id, n >= 1); SENTINEL ids count 0. Each id takes a branchless
+// lower-bound search whose step count depends on n alone, so the K
+// searches run in lockstep and their loads overlap.
+template <int K>
+__device__ __forceinline__ uint32_t count_in_sorted(const int32_t* row,
+                                                    int32_t n,
+                                                    const int32_t (&x)[K]) {
+  int32_t base[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) base[u] = 0;
+  for (int32_t m = n; m > 1;) {
+    const int32_t half = m >> 1;
+#pragma unroll
+    for (int u = 0; u < K; ++u)
+      base[u] = row[base[u] + half] < x[u] ? base[u] + half : base[u];
+    m -= half;
+  }
+  uint32_t hits = 0;
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int32_t lb = base[u] + (row[base[u]] < x[u]);
+    hits += x[u] != SENTINEL && lb < n && row[lb] == x[u];
+  }
+  return hits;
+}
+
 // Block-wide sum of one value per thread; thread 0 writes it to
 // out[blockIdx.x]. Every thread of the block must call it.
 __device__ __forceinline__ void block_sum_store(unsigned long long v,

@@ -18,7 +18,9 @@ serializes concurrent builds (several processes of one run).
 Each C entry point takes every pointer as c_void_p (tensor.data_ptr()),
 sizes as c_int64 and the stream as c_void_p
 (torch.cuda.current_stream().cuda_stream), launches on that stream without
-synchronizing, and returns cudaGetLastError().
+synchronizing, and returns cudaGetLastError(). The *_blocks entry points
+return the blocks of one full wave of a persistent kernel's grid (SMs x
+resident blocks), or a negative CUDA error.
 """
 from __future__ import annotations
 
@@ -47,15 +49,18 @@ BUILD_INFO = None
 
 _VP, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # dst, src, n_rows, width, ws, wtv, wta, partials, n_blocks, stream
-    "gm_stream_bucket_count": [_VP, _VP, _I64, _I64, _I64, _I64, _I64, _VP,
-                               _I64, _VP],
+    # bucket records, tile records, n_tiles, partials, n_blocks, stream
+    "gm_stream_count": [_VP, _VP, _I64, _VP, _I64, _VP],
+    # -> blocks of one full wave (negative: a CUDA error)
+    "gm_stream_count_blocks": [],
     # table, n_table, src, dloc, n, words, wc, partials, n_blocks, stream
     "gm_ring_phase_c": [_VP, _I64, _VP, _VP, _I64, _I64, _I64, _VP, _I64,
                         _VP],
-    # ta, na, wa, tb, nb, wb, sa, sb, n, partials, n_blocks, stream
-    "gm_ring_tail_pairs": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
-                           _VP, _I64, _VP],
+    # bucket records, tile records, n_tiles, region, partials, n_blocks,
+    # stream
+    "gm_ring_tail_pairs": [_VP, _VP, _I64, _I64, _VP, _I64, _VP],
+    # region -> blocks of one full wave (negative: a CUDA error)
+    "gm_ring_tail_pairs_blocks": [_I64],
     # src_rows, ns, dst_rows, nd, row_w, words, wa, wb, su, dv, n, partials,
     # n_blocks, stream
     "gm_hub_tail_count": [_VP, _I64, _VP, _I64, _I64, _I64, _I64, _I64, _VP,
@@ -160,6 +165,22 @@ def kernels():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_WAVES = {}
+
+
+def wave_blocks(name: str, device_index: int, *args: int) -> int:
+    """Blocks of one full wave of a persistent kernel's grid (SMs x the
+    blocks an SM holds), from its entry point `name` (a gm_*_blocks) called
+    with `args`, asked once per device."""
+    key = (name, device_index, *args)
+    if key not in _WAVES:
+        nb = getattr(kernels(), name)(*args)
+        if nb <= 0:
+            raise RuntimeError(f"{name}: occupancy query failed ({nb})")
+        _WAVES[key] = nb
+    return _WAVES[key]
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -13,7 +13,8 @@ row ONCE and pays per task only an int32 index or a short list slot:
   popcount(CB[u] & CB[v]) + |T[u] ∩ T[v]|: the bitmap part is kernel B again
   over the dense bm_table, grouped by src; the tail part gathers each side's
   short tail from per-class tail tables (every vertex's tail stored once at
-  its own width class) and is kernel C.
+  its own width class) and is kernel C, ONE launch over every tail bucket
+  through a tile table built once per layout (RingEngine's tail_plan).
 
 The host-side planning is numpy and identical to the JAX package's. There is
 no use_pallas switch: on a CUDA device phase C always runs kernel B.
@@ -31,7 +32,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
-from .cuda_ring import ring_phase_c, ring_tail_pairs
+from .cuda_ring import plan_tail_pairs, ring_phase_c, ring_tail_pairs_all
 
 CORE = 4096
 # src core-out-degree classes for phase C (dst-index slots per src row)
@@ -345,23 +346,24 @@ class RingEngine:
         self.layout = layout
         self.n_edges = layout.n_tasks
         self.device = layout.core_bm.device
+        # the tile table of kernel C, on the device; it holds the tbuckets'
+        # pointers and keeps their tensors referenced
+        self.tail_plan = plan_tail_pairs(
+            [(layout.tail_tables[b.ta], layout.tail_tables[b.tv], b.src_slot,
+              b.dst_slot) for b in layout.tbuckets], device=self.device)
 
     def partials(self) -> torch.Tensor:
-        """int64 [n_buckets] per-bucket counts, left on the device: phase C
-        (kernel B over the core table), the phase-T bitmap pass (kernel B
-        over bm_table), then the tail pairs (kernel C)."""
+        """int64 partial counts left on the device, whose sum is the count:
+        one per bucket of phase C (kernel B over the core table) and of the
+        phase-T bitmap pass (kernel B over bm_table), then the partials of
+        one launch of kernel C over every tail bucket."""
         lay = self.layout
         outs = ([ring_phase_c(lay.core_bm, b.src_bm, b.dst_loc)
                  for b in lay.cbuckets]
                 + [ring_phase_c(lay.bm_table, b.src_bm, b.dst_loc)
-                   for b in lay.bbuckets]
-                + [ring_tail_pairs(lay.tail_tables[b.ta],
-                                   lay.tail_tables[b.tv], b.src_slot,
-                                   b.dst_slot)
-                   for b in lay.tbuckets])
-        if not outs:
-            return torch.zeros(1, dtype=torch.int64, device=self.device)
-        return torch.stack(outs)
+                   for b in lay.bbuckets])
+        tails = ring_tail_pairs_all(self.tail_plan)
+        return torch.cat([torch.stack(outs), tails]) if outs else tails
 
     def count(self) -> int:
         from ..utils.profiling import PROFILER

@@ -12,8 +12,10 @@ triangle count:
   * Per task: |N+(u) ∩ N+(v)| = popcount(CB[u] & CB[v]) + |T[u] ∩ T[v]|
     over the HubLayout row encoding (ops/hubcore.py), with both bitmap rows
     sliced to the dst's top-word span (lossless: a & 0 = 0).
-  * The count of a bucket is kernel A (ops/cuda_stream.py); the engine sums
-    the per-bucket int64 counts on the device and reads one number back.
+  * The count is ONE launch of kernel A (ops/cuda_stream.py) over every
+    bucket, through a tile table built once per layout (StreamEngine's
+    plan); the engine sums the kernel's int64 partials on the device and
+    reads one number back.
 
 The host-side planning is numpy and identical to the JAX package's, so
 both build the same buckets bit for bit. _materialize is an on-device
@@ -35,7 +37,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
-from .cuda_stream import stream_bucket_count
+from .cuda_stream import plan_stream, stream_count_all
 from .hubcore import HubLayout, build_hub_layout
 
 # Dst in-degree classes. Dsts with more in-neighbors than the top class are
@@ -325,15 +327,15 @@ class StreamEngine:
         self.words = stream.layout.words
         self.n_edges = stream.n_tasks
         self.device = stream.layout.table.device
+        # the tile table of kernel A, on the device; it holds the buckets'
+        # pointers and keeps their tensors referenced
+        self.plan = plan_stream([(b.dst_rows, b.src_rows, b.ws, b.wtv)
+                                 for b in stream.buckets], device=self.device)
 
     def partials(self) -> torch.Tensor:
-        """int64 [n_buckets] per-bucket counts, left on the device."""
-        outs = [stream_bucket_count(b.dst_rows, b.src_rows, ws=b.ws,
-                                    wtv=b.wtv)
-                for b in self.stream.buckets]
-        if not outs:
-            return torch.zeros(1, dtype=torch.int64, device=self.device)
-        return torch.stack(outs)
+        """int64 [n] partial counts left on the device (one launch of kernel
+        A over every bucket); their sum is the count."""
+        return stream_count_all(self.plan)
 
     def count(self) -> int:
         from ..utils.profiling import PROFILER

@@ -1,5 +1,5 @@
 """Kernels A-E, m3, m3b and R against their plain PyTorch versions on a
-CUDA card.
+CUDA card, A and C also as one grouped launch over many buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -35,7 +35,6 @@ def words(rng, *shape):
     return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
 
 
-
 def tails(rng, rows, width):
     vals = np.cumsum(rng.integers(1, 12, (rows, width)), axis=1
                      ).astype(np.int32)
@@ -59,6 +58,58 @@ def test_stream_bucket_count(dev, ws, wtv, wta):
     assert cuda_stream.stream_bucket_count.launches == before + 1
     assert int(got) == int(cuda_stream.stream_bucket_count_plain(
         d, s, ws=ws, wtv=wtv))
+
+
+#: (n_rows, width, ws, wtv, wta) per bucket: a one-row bucket, widths 2 and
+#: 2048, every ws class, tails narrower and wider than the dst's, an empty one
+STREAM_SETS = {
+    "mixed": [(1, 2048, 8, 0, 0), (37, 2, 128, 48, 32), (64, 32, 32, 16, 8),
+              (200, 8, 8, 16, 16), (5, 512, 128, 0, 0),
+              (3, 128, 128, 48, 48), (0, 32, 8, 16, 8), (9, 2, 8, 0, 0)],
+    "wide": [(2, 2048, 32, 0, 0), (16, 2048, 8, 0, 0), (1, 2, 8, 0, 0)],
+    "tails": [(300, 2, 8, 16, 8), (40, 128, 128, 200, 96),
+              (8, 32, 32, 48, 64)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_SETS))
+def test_stream_count_all(dev, name):
+    rng = np.random.default_rng(len(name))
+    buckets = []
+    for n, width, ws, wtv, wta in STREAM_SETS[name]:
+        d = np.concatenate([words(rng, n, ws), tails(rng, n, wtv)], axis=1)
+        s = np.concatenate([words(rng, n * width, ws),
+                            tails(rng, n * width, wta)], axis=1)
+        s[rng.random(n * width) < 0.2, ws:] = SENTINEL
+        buckets.append((torch.from_numpy(d).to(dev), torch.from_numpy(
+            s.reshape(n, width, ws + wta)).to(dev), ws, wtv))
+    plan = cuda_stream.plan_stream(buckets)
+    before = cuda_stream.stream_bucket_count.launches
+    got = cuda_stream.stream_count_all(plan)
+    assert cuda_stream.stream_bucket_count.launches == before + 1
+    assert got.dtype == torch.int64 and got.dim() == 1
+    assert int(got.sum()) == int(cuda_stream.stream_count_all_plain(plan))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ring_tail_pairs_all(dev, seed):
+    rng = np.random.default_rng(seed)
+    tables = {w: torch.from_numpy(tails(rng, 90, w)).to(dev)
+              for w in (8, 16, 64, 2048, 4096)}
+    groups = []
+    for wa, wb, n in [(8, 8, 700), (16, 2048, 90), (2048, 16, 40),
+                      (64, 4096, 30), (8, 64, 0), (64, 8, 500)]:
+        sa = rng.integers(-2, 92, n).astype(np.int32)
+        sb = rng.integers(-2, 92, n).astype(np.int32)
+        sa[rng.random(n) < 0.05] = SENTINEL
+        groups.append((tables[wa], tables[wb], torch.from_numpy(sa).to(dev),
+                       torch.from_numpy(sb).to(dev)))
+    plan = cuda_ring.plan_tail_pairs(groups)
+    before = cuda_ring.ring_tail_pairs.launches
+    got = cuda_ring.ring_tail_pairs_all(plan)
+    assert cuda_ring.ring_tail_pairs.launches == before + 1
+    assert got.dtype == torch.int64 and got.dim() == 1
+    assert int(got.sum()) == int(cuda_ring.ring_tail_pairs_all_plain(plan))
 
 
 @pytest.mark.parametrize("wc", [4, 16, 64, 256, 1024, 4096])
@@ -128,6 +179,19 @@ def test_window_count(dev, rows_per_step, w, span):
 def test_times_two(dev):
     x = torch.from_numpy(words(np.random.default_rng(0), 8, 128)).to(dev)
     assert torch.equal(cuda_check.times_two(x), cuda_check.times_two_plain(x))
+
+
+def test_engine_counts_launch_a_and_c_once(dev):
+    g = rmat(12, 16, seed=7)
+    se = StreamEngine(g, core=256, device=dev)
+    re_ = RingEngine(g, core=256, device=dev)
+    assert len(se.stream.buckets) > 1 and len(re_.layout.tbuckets) > 1
+    a, c = (cuda_stream.stream_bucket_count.launches,
+            cuda_ring.ring_tail_pairs.launches)
+    want = StreamEngine(g, core=256, device="cpu").count()
+    assert se.count() == want and re_.count() == want
+    assert (cuda_stream.stream_bucket_count.launches,
+            cuda_ring.ring_tail_pairs.launches) == (a + 1, c + 1)
 
 
 def test_engines_rmat14_golden(dev):
