@@ -13,22 +13,26 @@ no result line) when any phase fails:
      launches kernel R through the port's launch_check script;
   3. holds kernels A, B, C, D, E, m3, m3b and R against their plain
      PyTorch versions on the card, exactly: random inputs over every width
-     class, A and C also as one grouped launch over random multi-bucket
-     sets, then the real buckets and tail groups of rmat14 builds, one by
-     one and grouped (counts 2,860,691, also through TriangleEngine);
+     class, A, B, C and E also as one grouped launch over random
+     multi-bucket sets, then the real buckets and tail groups of rmat14
+     builds, one by one and grouped (counts 2,860,691, also through
+     TriangleEngine);
   4. runs `python -m graphminer_tpu_torch tc <rmat18> --fast --json
      --profile` and checks its count and that kernel A launched once;
-  5. runs the ring engine on the same graph and checks its count, that
-     kernel B launched and that kernel C launched once;
+  5. runs the ring engine on the same graph and checks its count and that
+     kernels B and C launched once each;
   6. runs TriangleEngine on the same graph (count, tail + core split,
-     kernel E launched), the port's prof_breakdown at rmat18 (kernels E and
-     D) and prof_window at its defaults (m1 = m2 = m3 = m3b), in process;
+     kernel E launched once), the port's prof_breakdown at rmat18 (kernels
+     E and D) and prof_window at its defaults (m1 = m2 = m3 = m3b), in
+     process;
   7. times every kernel with CUDA events (median of 11 after warm-up),
      kernel and plain version side by side, each beside the least time an
-     H100 could take for the same work (A and C as the engines' single
-     launch, A also over groups of the rmat18 buckets), the spoke product
-     (torch._int_mm) against its operations bound, and the device-busy
-     share of stream counts from torch.profiler.
+     H100 could take for the same work (A, B, C and E as the engines'
+     single launch, A also over groups of the rmat18 buckets; B also with
+     the bytes it reads past L1), the spoke product (torch._int_mm) against
+     its operations bound, the device-busy share of stream, ring and
+     hub-core counts from torch.profiler, and kernel R's and torch.mul's
+     device time alone (torch.profiler).
 
 Each path of phases 2 and 4-6 runs with every launch count set to 0 just
 before it, and its counts are read just after. The line before the last is
@@ -279,6 +283,7 @@ def kernel_checks_random():
             n_cases += 1
     n_cases += kernel_checks_random_slice2(rng, t)
     n_cases += grouped_checks_random(rng, t)
+    n_cases += grouped_checks_random_be(rng, t)
     torch.cuda.synchronize()
     say(f"kernel == plain on random inputs: {n_cases} cases exact")
 
@@ -330,6 +335,65 @@ def grouped_checks_random(rng, t):
         compare("ring_tail_pairs", cuda_ring.ring_tail_pairs_all(plan).sum(),
                 cuda_ring.ring_tail_pairs_all_plain(plan).sum(),
                 f"grouped random, {n_b} tail buckets")
+        n_cases += 1
+    return n_cases
+
+
+def grouped_checks_random_be(rng, t):
+    """B and E as one launch over random multi-bucket sets against the sum
+    of the plain versions. B: 3-12 buckets over a 4096-row core table
+    (staged), a 20,000-row bitmap table (read in place) and small tables of
+    8 and 40 words; a one-row bucket, an empty one, wc 4 to 4096, half the
+    src slices zero, SENTINEL and out-of-table slots. E: groups of every
+    class pair of 0, 16, 64 and 256 over 48-slot tails (so wa and wb clamp
+    to wt_pad), a one-task group, an empty group, SENTINEL padding and ids
+    outside the tables. Words have bit 31 set about half the time. Returns
+    the number of cases."""
+    from graphminer_tpu_torch.ops import cuda_hubcore, cuda_ring
+    from types import SimpleNamespace
+    tables = {"core": _words(rng, (4096, 128)), "bm": _words(rng, (20000, 128)),
+              "w8": _words(rng, (200, 8)), "w40": _words(rng, (1300, 40))}
+    tables = {k: t(v) for k, v in tables.items()}
+    n_cases = 0
+    for n_b in (3, 7, 12):
+        specs = [("core", 1, 4096), ("bm", 0, 16), ("core", 500, 64)]
+        for _ in range(n_b - 3):
+            key = str(rng.choice(["core", "core", "bm", "w8", "w40"]))
+            wc = int(rng.choice([4, 16, 64, 256, 1024, 4096]))
+            specs.append((key, int(rng.integers(1, max(2, 65536 // wc))), wc))
+        groups = []
+        for key, n, wc in specs:
+            tab = tables[key]
+            src = _words(rng, (n, tab.shape[1]))
+            sl = tab.shape[1] // 8
+            src.reshape(n, sl, 8)[rng.random((n, sl)) < 0.5] = 0
+            dl = rng.integers(-3, tab.shape[0] + 3, size=(n, wc)
+                              ).astype(np.int32)
+            dl[rng.random((n, wc)) < 0.1] = SENTINEL
+            groups.append((tab, t(src), t(dl)))
+        plan = cuda_ring.plan_phase_c(groups)
+        compare("ring_phase_c", cuda_ring.ring_phase_c_all(plan).sum(),
+                cuda_ring.ring_phase_c_all_plain(plan).sum(),
+                f"grouped random, {n_b} buckets")
+        n_cases += 1
+    for words, wt in ((128, 48), (8, 16)):
+        def rows(m):
+            return t(np.concatenate([_words(rng, (m, words)),
+                                     _tails(rng, m, wt, wt)], axis=1))
+        tabs = SimpleNamespace(src_rows=rows(3000), dst_rows=rows(900))
+        arrays, spec = [], []
+        pairs = [(a, b) for a in (0, 16, 64, 256) for b in (0, 16, 64, 256)]
+        for i, (wa, wb) in enumerate(pairs):
+            n = (1, 0)[i] if i < 2 else int(rng.integers(1, 20000))
+            su = rng.integers(-2, 3002, size=n + 64).astype(np.int32)
+            dv = np.sort(rng.integers(-2, 902, size=n + 64)).astype(np.int32)
+            su[n:] = dv[n:] = SENTINEL
+            arrays.append((t(su), t(dv)))
+            spec.append((wa, wb, n + 64))
+        plan = cuda_hubcore.plan_tail_count(tabs, arrays, spec, words)
+        compare("hub_tail_count", cuda_hubcore.hub_tail_count_all(plan).sum(),
+                cuda_hubcore.hub_tail_count_all_plain(plan).sum(),
+                f"grouped random, words={words} wt={wt}, 16 groups")
         n_cases += 1
     return n_cases
 
@@ -446,6 +510,15 @@ def kernel_checks_rmat14():
             cuda_ring.ring_tail_pairs_all(re_.tail_plan).sum(),
             cuda_ring.ring_tail_pairs_all_plain(re_.tail_plan).sum(),
             "rmat14 grouped launch")
+    compare("ring_phase_c",
+            cuda_ring.ring_phase_c_all(re_.phase_c_plan).sum(),
+            cuda_ring.ring_phase_c_all_plain(re_.phase_c_plan).sum(),
+            "rmat14 grouped launch")
+    from graphminer_tpu_torch.ops import cuda_hubcore
+    compare("hub_tail_count",
+            cuda_hubcore.hub_tail_count_all(he.tail_plan).sum(),
+            cuda_hubcore.hub_tail_count_all_plain(he.tail_plan).sum(),
+            "rmat14 grouped launch")
     torch.cuda.synchronize()
     s, r, h = se.count(), re_.count(), he.count()
     check(s == GOLDEN[14] and r == GOLDEN[14] and h == GOLDEN[14],
@@ -453,7 +526,7 @@ def kernel_checks_rmat14():
     ht, hc = he.count_tail(), he.count_core()
     check(ht + hc == h, f"rmat14 hub-core tail {ht} + core {hc} != {h}")
     say(f"rmat14: kernel == plain on every bucket and tail group {sizes} "
-        f"and as grouped launches of A and C; "
+        f"and as grouped launches of A, B, C and E; "
         f"stream = ring = hub-core = {s} (tail {ht} + core {hc})")
 
 
@@ -508,8 +581,9 @@ def run_ring(g):
     total, launches = run_path("RingEngine rmat18 count", eng.count,
                                ["ring_phase_c", "ring_tail_pairs"])
     say(f"RingEngine rmat18: count={total} build_s={t_build:.1f}")
-    check(launches["ring_tail_pairs"] == 1,
-          f"kernel C launched {launches['ring_tail_pairs']} times, not once")
+    for k, letter in (("ring_phase_c", "B"), ("ring_tail_pairs", "C")):
+        check(launches[k] == 1, f"kernel {letter} launched {launches[k]} "
+              "times by the ring count, not once")
     check(total == GOLDEN[18], f"ring count {total} != {GOLDEN[18]}")
     return eng, launches
 
@@ -566,38 +640,46 @@ def kernel_bytes(name, calls, n_partials=None):
 
 
 def timing(stream_eng, ring_eng):
-    """Per-kernel and per-engine device time, kernel vs plain, in turns: A
-    and C as the engines' one grouped launch, B as its per-bucket calls."""
+    """Per-kernel and per-engine device time, kernel vs plain, in turns: A,
+    B and C as the engines' one grouped launch."""
     from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
     from graphminer_tpu_torch.utils.profiling import bound_ms
     res = {}
-    zero = torch.zeros((), dtype=torch.int64, device="cuda")
-    splan, tplan = stream_eng.plan, ring_eng.tail_plan
+    splan, pplan, tplan = (stream_eng.plan, ring_eng.phase_c_plan,
+                           ring_eng.tail_plan)
     grouped = {
         "stream_bucket_count": (
             lambda: cuda_stream.stream_count_all(splan),
             lambda: cuda_stream.stream_count_all_plain(splan)),
+        "ring_phase_c": (
+            lambda: cuda_ring.ring_phase_c_all(pplan),
+            lambda: cuda_ring.ring_phase_c_all_plain(pplan)),
         "ring_tail_pairs": (
             lambda: cuda_ring.ring_tail_pairs_all(tplan),
             lambda: cuda_ring.ring_tail_pairs_all_plain(tplan))}
-    for name, (kern, plain, calls) in bucket_calls(stream_eng,
-                                                   ring_eng).items():
-        if name in grouped:
-            k, p, kv, pv = in_turns(*grouped[name])
-            n_parts, what = kv.numel(), "1 launch"
-        else:
-            k, p, kv, pv = in_turns(
-                lambda: sum((kern(*a, **kw) for a, kw in calls), zero),
-                lambda: sum((plain(*a, **kw) for a, kw in calls), zero))
-            n_parts, what = None, f"{len(calls)} launches"
+    for name, (_, _, calls) in bucket_calls(stream_eng, ring_eng).items():
+        k, p, kv, pv = in_turns(*grouped[name])
         compare(name, kv.sum(), pv.sum(), "rmat18 engine share")
-        b_ms, b_by = bound_ms(kernel_bytes(name, calls, n_parts))
+        nbytes = kernel_bytes(name, calls, kv.numel())
+        b_ms, b_by = bound_ms(nbytes)
         res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
-        say(f"[{CARD}] {name} at rmat18 ({len(calls)} buckets, {what}): "
+        say(f"[{CARD}] {name} at rmat18 ({len(calls)} buckets, 1 launch): "
             f"kernel {k:.4f} ms, plain {p:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}, {nbytes} B)")
+    # B's bytes past L1 per count in the kernel's own terms, beside the
+    # first design's (one whole table row a valid task, its src row and
+    # slots) and the bound's
+    first = sum(int(((d >= 0) & (d < t.shape[0])).sum()) * t.shape[1] * 4
+                + (s.numel() + d.numel()) * 4 for t, s, d in pplan.groups)
+    bound = kernel_bytes("ring_phase_c", [(g, {}) for g in pplan.groups],
+                         pplan.n_blocks)
+    say(f"ring_phase_c rmat18 bytes past L1 a count: {pplan.l2_bytes} "
+        f"(first design {first}; bound {bound}); "
+        f"{pplan.items.shape[0]} items in {pplan.n_tiles} tiles over "
+        f"{pplan.n_blocks} blocks, {pplan.stage_rows} rows staged a slice")
     stream_groups(stream_eng)
+    phase_c_groups(ring_eng)
     engines = (
         ("stream", stream_eng, stream_eng.stream.nbytes(),
          [res["stream_bucket_count"]]),
@@ -661,6 +743,34 @@ def stream_groups(stream_eng, top=4):
         f"{pad / max(n, 1):.4f}")
 
 
+def phase_c_groups(ring_eng):
+    """Kernel B, one launch each, over the ring layout's phase-C buckets
+    alone (core table staged) and its bitmap-pass buckets alone (bm_table
+    read in place), each held against the plain version and printed with
+    its slots (task-sector pairs) and time a slot: the planner weighs a
+    slot of an unstaged table by their ratio (cuda_ring.DIRECT_COST)."""
+    from graphminer_tpu_torch.ops import cuda_ring
+    lay = ring_eng.layout
+    per = {}
+    for label, table, bks in (("phase C", lay.core_bm, lay.cbuckets),
+                              ("bitmap pass", lay.bm_table, lay.bbuckets)):
+        plan = cuda_ring.plan_phase_c(
+            [(table, b.src_bm, b.dst_loc) for b in bks])
+        ms, kv = time_ms(lambda: cuda_ring.ring_phase_c_all(plan))
+        compare("ring_phase_c", kv.sum(),
+                cuda_ring.ring_phase_c_all_plain(plan).sum(),
+                f"rmat18 {label}")
+        slots = int((plan.items[:, 1] & ((1 << cuda_ring.LEN_BITS) - 1))
+                    .sum())
+        per[label] = ms / slots
+        say(f"[{CARD}] ring_phase_c rmat18 {label}: {len(bks)} buckets, "
+            f"{plan.items.shape[0]} items, {slots} slots, {ms:.4f} ms, "
+            f"{ms / slots * 1e9:.3f} ps a slot")
+    say(f"ring_phase_c rmat18 time a slot, bitmap pass / phase C: "
+        f"{per['bitmap pass'] / per['phase C']:.3f} (planner: "
+        f"{cuda_ring.DIRECT_COST})")
+
+
 def busy_share(label, eng, kernels, counts=5):
     """The device-busy share of `counts` engine counts: the device time of
     the kernels and copies torch.profiler records, over the window that two
@@ -694,6 +804,24 @@ def busy_share(label, eng, kernels, counts=5):
         f"count: " + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
 
+def device_ms(fn, calls=200):
+    """The device time of one fn() call in ms: the kernels torch.profiler
+    records over `calls` calls after warm-up, summed, over `calls`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(dev, "torch.profiler recorded no device event")
+    return sum(e.time_range.elapsed_us() for e in dev) / calls / 1e3
+
+
 # --------------------------------------------------------------------------
 # phase 6: the hub-core engine and the probe scripts
 # --------------------------------------------------------------------------
@@ -705,6 +833,9 @@ def run_triangle_engine(g):
     t_build = time.perf_counter() - t0
     total, launches = run_path("TriangleEngine rmat18 count", eng.count,
                                ["hub_tail_count"])
+    check(launches["hub_tail_count"] == 1,
+          f"kernel E launched {launches['hub_tail_count']} times by the "
+          "hub-core count, not once")
     tail, core = eng.count_tail(), eng.count_core()
     say(f"TriangleEngine rmat18: count={total} (tail {tail} + core {core}) "
         f"build_s={t_build:.1f} groups={eng.spec} "
@@ -775,21 +906,20 @@ def timing_slice(hub_eng, pb, pw):
     from graphminer_tpu_torch.utils.profiling import bound_ms
     dev = torch.device("cuda")
     res = {}
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # E: the rmat18 tail groups
-    calls = tail_calls(hub_eng)
+    # E: the rmat18 tail groups, one launch
+    plan = hub_eng.tail_plan
     k, p, kv, pv = in_turns(
-        lambda: hub_eng.tail_partials().sum(),
-        lambda: sum((cuda_hubcore.hub_tail_count_plain(*a, **kw)
-                     for a, kw in calls), zero))
-    compare("hub_tail_count", kv, pv, "rmat18 tail groups")
+        lambda: cuda_hubcore.hub_tail_count_all(plan),
+        lambda: cuda_hubcore.hub_tail_count_all_plain(plan))
+    compare("hub_tail_count", kv.sum(), pv.sum(), "rmat18 tail groups")
     b_ms, b_by = pb["tail"]["bound"]
     res["hub_tail_count"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=None)
-    say(f"[{CARD}] hub_tail_count at rmat18 ({len(calls)} groups, "
-        f"{hub_eng.n_tail_tasks} tasks): kernel {k:.3f} ms, plain {p:.3f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}, {pb['tail']['bytes']} bytes)")
+    say(f"[{CARD}] hub_tail_count at rmat18 ({len(plan.groups)} groups, "
+        f"{hub_eng.n_tail_tasks} tasks, {plan.n_tiles} tiles, 1 launch): "
+        f"kernel {k:.4f} ms, plain {p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{pb['tail']['bytes']} bytes)")
 
     # the spoke product: torch._int_mm (a library call, no kernel of ours);
     # first the layout and shape rules that hubcore relies on, then its
@@ -811,6 +941,12 @@ def timing_slice(hub_eng, pb, pw):
     say(f"[{CARD}] spoke product (torch._int_mm, {hub_eng.spoke.shape[0]} "
         f"rows, Gram == f32 Gram on slab 1): {s_ms:.3f} ms, bound "
         f"{sb_ms:.4f} ms ({sb_by}, {ops:.4e} int8 ops); count {int(spoke)}")
+    e_ms, total = time_ms(lambda: hub_eng.tail_partials().sum()
+                          + hub_eng.core_partials().sum())
+    check(int(total) == GOLDEN[18], f"hub-core total {int(total)}")
+    say(f"[{CARD}] hub-core engine rmat18 device count: {e_ms:.3f} ms "
+        f"(tail {k:.4f} ms + spoke {s_ms:.3f} ms)")
+    busy_share("hub-core", hub_eng, {"E": "hub_tail_count_kernel"})
 
     # D: prof_breakdown's eight shapes; the library yardstick is one
     # embedding_bag over the whole index list (exact in float64 below 2^53)
@@ -865,10 +1001,16 @@ def timing_slice(hub_eng, pb, pw):
     compare("times_two", kv, pv, "[8, 128]")
     lib_ms, _ = time_ms(lambda: torch.mul(x, 2))
     b_ms, b_by = bound_ms(2 * x.numel() * 4)
+    # the device time alone, without the wrapper's dispatch
+    dev_ms = device_ms(lambda: cuda_check.times_two(x))
+    lib_dev_ms = device_ms(lambda: torch.mul(x, 2))
     res["times_two"] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=lib_ms)
+                            library_ms=lib_ms, device_ms=dev_ms,
+                            library_device_ms=lib_dev_ms)
     say(f"[{CARD}] times_two [8, 128]: kernel {k:.4f} ms, plain {p:.4f} "
-        f"ms, torch.mul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"ms, torch.mul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); on "
+        f"the device alone (torch.profiler): kernel {dev_ms:.5f} ms, "
+        f"torch.mul {lib_dev_ms:.5f} ms")
     return res
 
 
@@ -901,9 +1043,11 @@ def main():
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("device_ms", "library_device_ms")          # R's alone
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
-             max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys})
+             max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},
+             **{x: res[k][x] for x in extra if x in res[k]})
         for k in KERNELS]}))
     say(CARD)
     say(json.dumps({"ok": True, "device": {

@@ -74,17 +74,19 @@ __device__ __forceinline__ uint32_t count_in_sorted(const int32_t* row,
   return hits;
 }
 
-// Block-wide sum of one value per thread; thread 0 writes it to
-// out[blockIdx.x]. Every thread of the block must call it.
+// Block-wide sum of one value per thread of an NT-thread block (NT <= 1024);
+// thread 0 writes it to out[blockIdx.x]. Every thread of the block must
+// call it.
+template <int NT = BLOCK>
 __device__ __forceinline__ void block_sum_store(unsigned long long v,
                                                 long long* __restrict__ out) {
-  __shared__ unsigned long long warp_sums[BLOCK / 32];
+  __shared__ unsigned long long warp_sums[NT / 32];
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   if (lane == 0) warp_sums[wid] = v;
   __syncthreads();
   if (wid == 0) {
-    v = lane < (BLOCK / 32) ? warp_sums[lane] : 0ull;
+    v = lane < (NT / 32) ? warp_sums[lane] : 0ull;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
     if (lane == 0) out[blockIdx.x] = static_cast<long long>(v);
   }

@@ -53,18 +53,22 @@ _SIGNATURES = {
     "gm_stream_count": [_VP, _VP, _I64, _VP, _I64, _VP],
     # -> blocks of one full wave (negative: a CUDA error)
     "gm_stream_count_blocks": [],
-    # table, n_table, src, dloc, n, words, wc, partials, n_blocks, stream
-    "gm_ring_phase_c": [_VP, _I64, _VP, _VP, _I64, _I64, _I64, _VP, _I64,
-                        _VP],
+    # bucket records, tiles, block ranges, items, stage_rows, partials,
+    # n_blocks, stream
+    "gm_ring_phase_c": [_VP, _VP, _VP, _VP, _I64, _VP, _I64, _VP],
+    # stage_rows -> blocks of one full wave (negative: a CUDA error)
+    "gm_ring_phase_c_blocks": [_I64],
     # bucket records, tile records, n_tiles, region, partials, n_blocks,
     # stream
     "gm_ring_tail_pairs": [_VP, _VP, _I64, _I64, _VP, _I64, _VP],
     # region -> blocks of one full wave (negative: a CUDA error)
     "gm_ring_tail_pairs_blocks": [_I64],
-    # src_rows, ns, dst_rows, nd, row_w, words, wa, wb, su, dv, n, partials,
-    # n_blocks, stream
-    "gm_hub_tail_count": [_VP, _I64, _VP, _I64, _I64, _I64, _I64, _I64, _VP,
-                          _VP, _I64, _VP, _I64, _VP],
+    # src_rows, ns, dst_rows, nd, row_w, words, group records, tiles,
+    # n_tiles, partials, n_blocks, stream
+    "gm_hub_tail_count": [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _I64,
+                          _VP, _I64, _VP],
+    # -> blocks of one full wave (negative: a CUDA error)
+    "gm_hub_tail_count_blocks": [],
     # idx, t, table, v, w, n_buf, partials, n_blocks, stream
     "gm_fetch_rows_sum": [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _I64, _VP],
     # src, table, nd, starts, lidx, nck, cap, w, span, wb, rows_per_step,

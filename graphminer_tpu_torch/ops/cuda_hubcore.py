@@ -19,16 +19,34 @@ where wa' = min(wa, wt_pad) and wb' = min(wb, wt_pad): a width class can be
 wider than the stored tail (at rmat18 class 64 against wt_pad 48), and the
 JAX slice table[:, :words + wa] clamps silently, so both versions clamp too.
 A task id outside its table (the SENTINEL padding of pack_groups) gives 0.
-The wrapper takes the plain version below only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+
+One launch counts every group of an engine: plan_tail_count builds, once
+per engine, a tile table in device memory (ops/_tiles.py) and
+hub_tail_count_all launches E once over it (int64 partials whose sum is the
+count). hub_tail_count is the one-group call of the same kernel. Both count
+their launches on hub_tail_count.launches. The wrappers take the plain
+versions only for CPU tensors; for CUDA tensors they launch or raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import types
+from typing import List, Optional, Tuple
+
+import numpy as np
 import torch
 
 from ..types import SENTINEL
 from . import _build
-from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
+from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
+from ._tiles import plan_tiles
+
+#: tasks per tile of kernel E: ~3,100 tiles over the 784,532 rmat18 tail
+#: tasks, several for each block of the persistent grid
+TAIL_TILE = 256
+#: fields of a tail-group record: su, dv, wa, wb (csrc/hub_tail_count.cu
+#: reads them in this order)
+TAIL_BREC = 4
 
 
 def _check(src_rows, dst_rows, su, dv, words):
@@ -42,37 +60,122 @@ def _check(src_rows, dst_rows, su, dv, words):
                          f"{tuple(dv.shape)} words={words}")
 
 
-def hub_tail_count(src_rows: torch.Tensor, dst_rows: torch.Tensor,
-                   su: torch.Tensor, dv: torch.Tensor, *, words: int,
-                   wa: int, wb: int) -> torch.Tensor:
-    """Count of one tail group (int64 0-d tensor); see module docstring."""
-    _check(src_rows, dst_rows, su, dv, words)
-    if not on_cuda("hub_tail_count", src_rows, dst_rows, su, dv):
-        return hub_tail_count_plain(src_rows, dst_rows, su, dv, words=words,
-                                    wa=wa, wb=wb)
+def clamp_widths(wa: int, wb: int, wt: int) -> Tuple[int, int]:
+    """The tail widths a group reads: each class clamped to the stored tail
+    width wt, and both 0 when either side's tail is empty (popcount only)."""
+    wa_, wb_ = min(wa, wt), min(wb, wt)
+    return (0, 0) if wa_ == 0 or wb_ == 0 else (wa_, wb_)
+
+
+@dataclasses.dataclass(frozen=True)
+class TailCountPlan:
+    """An engine's tail groups and their tile table, on the tables' device.
+    groups holds (su, dv, wa, wb) per group, flat task ids and the class
+    widths as the engine gives them; the table holds raw pointers, so the
+    plan keeps the tensors referenced for as long as it lives."""
+    src_rows: torch.Tensor
+    dst_rows: torch.Tensor
+    words: int
+    groups: Tuple[Tuple[torch.Tensor, torch.Tensor, int, int], ...]
+    table: Optional[torch.Tensor]  # int64 [n*TAIL_BREC + n_tiles*TREC]
+    n_tiles: int
+
+
+def tail_count_shapes(groups, ns: int, nd: int,
+                      wt: int) -> List[Tuple[int, int, int]]:
+    """(tasks, wa, wb) per group (su, dv, wa, wb) as kernel E walks it: the
+    widths clamped to the stored tail width wt (clamp_widths), the tasks cut
+    after the last one whose ids both lie inside their tables (the rest,
+    pack_groups' SENTINEL padding, count 0; the ids are read once)."""
+    out = []
+    for su, dv, wa, wb in groups:
+        ok = (su >= 0) & (su < ns) & (dv >= 0) & (dv < nd)
+        pos = torch.nonzero(ok)
+        out.append((int(pos[-1]) + 1 if pos.numel() else 0,
+                    *clamp_widths(wa, wb, wt)))
+    return out
+
+
+def plan_tail_count(tables, group_arrays, spec, words: int) -> TailCountPlan:
+    """The plan of an engine's tail groups: tables has src_rows and
+    dst_rows (TailTables); group_arrays and spec are pack_groups' output
+    ((su, dv) chunk arrays and (wa, wb, chunk) per group). For CUDA tensors
+    it clamps each group's widths, drops the trailing tasks whose ids lie
+    outside the tables (pack_groups' SENTINEL padding; read once), tiles the
+    rest and copies the table to the card once."""
+    src_rows, dst_rows = tables.src_rows, tables.dst_rows
+    groups = tuple((s.reshape(-1), d.reshape(-1), int(wa), int(wb))
+                   for (s, d), (wa, wb, *_) in zip(group_arrays, spec))
+    for su, dv, _, _ in groups:
+        _check(src_rows, dst_rows, su, dv, words)
+    tensors = [src_rows, dst_rows] + [t for g in groups for t in g[:2]]
+    if not on_cuda("hub_tail_count_all", *tensors):
+        return TailCountPlan(src_rows, dst_rows, words, groups, None, 0)
     row_w = src_rows.shape[1]
     if words % 4 or row_w % 4:
         raise ValueError(f"kernel reads 16-byte rows: words={words} and row "
                          f"width {row_w} must be multiples of 4")
     if src_rows.data_ptr() % 16 or dst_rows.data_ptr() % 16:
         raise ValueError("kernel reads 16-byte chunks: rows must be aligned")
-    wt = row_w - words
-    wa_, wb_ = min(wa, wt), min(wb, wt)
-    if wa_ == 0 or wb_ == 0:
-        wa_ = wb_ = 0                       # one side's tail empty: popcount
-    n = su.shape[0]
-    if n == 0:
-        return torch.zeros((), dtype=torch.int64, device=su.device)
+    shapes = tail_count_shapes(groups, src_rows.shape[0], dst_rows.shape[0],
+                               row_w - words)
+    recs = np.array([(su.data_ptr(), dv.data_ptr(), wa, wb) for
+                     (su, dv, _, _), (_, wa, wb) in zip(groups, shapes)],
+                    np.int64).reshape(-1, TAIL_BREC)
+    tiles = plan_tiles([n for n, _, _ in shapes], [1] * len(shapes),
+                       TAIL_TILE)
+    table = torch.from_numpy(np.concatenate([recs.reshape(-1),
+                                             tiles.reshape(-1)]))
+    return TailCountPlan(src_rows, dst_rows, words, groups,
+                         table.to(src_rows.device), tiles.shape[0])
+
+
+def hub_tail_count_all(plan: TailCountPlan) -> torch.Tensor:
+    """Kernel E over every group of `plan` in one launch: int64 [n] partial
+    counts on the tables' device whose sum is the count (one per block). On
+    the CPU, the plain version."""
+    if plan.table is None:
+        return hub_tail_count_all_plain(plan)
+    dev = plan.src_rows.device
+    if plan.n_tiles == 0:
+        return torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _build.kernels()
-    nb = n_blocks(n * 32)                   # one warp per task
-    out = torch.empty(nb, dtype=torch.int64, device=su.device)
+    nb = min(plan.n_tiles, _build.wave_blocks(
+        "gm_hub_tail_count_blocks", torch.cuda.current_device()))
+    out = torch.empty(nb, dtype=torch.int64, device=dev)
+    sr, dr = plan.src_rows, plan.dst_rows
+    tiles = plan.table.data_ptr() + len(plan.groups) * TAIL_BREC * 8
     _build.check_launch(lib.gm_hub_tail_count(
-        src_rows.data_ptr(), src_rows.shape[0], dst_rows.data_ptr(),
-        dst_rows.shape[0], row_w, words, wa_, wb_, su.data_ptr(),
-        dv.data_ptr(), n, out.data_ptr(), nb,
-        torch.cuda.current_stream(su.device).cuda_stream), "hub_tail_count")
+        sr.data_ptr(), sr.shape[0], dr.data_ptr(), dr.shape[0], sr.shape[1],
+        plan.words, plan.table.data_ptr(), tiles, plan.n_tiles,
+        out.data_ptr(), nb, torch.cuda.current_stream(dev).cuda_stream),
+        "hub_tail_count")
     hub_tail_count.launches += 1
-    return out.sum()
+    return out
+
+
+def hub_tail_count_all_plain(plan: TailCountPlan) -> torch.Tensor:
+    """Plain version of hub_tail_count_all: the sum of the per-group plain
+    counts, as an int64 [1] tensor."""
+    total = torch.zeros(1, dtype=torch.int64, device=plan.src_rows.device)
+    for su, dv, wa, wb in plan.groups:
+        total += hub_tail_count_plain(plan.src_rows, plan.dst_rows, su, dv,
+                                      words=plan.words, wa=wa, wb=wb)
+    return total
+
+
+def hub_tail_count(src_rows: torch.Tensor, dst_rows: torch.Tensor,
+                   su: torch.Tensor, dv: torch.Tensor, *, words: int,
+                   wa: int, wb: int) -> torch.Tensor:
+    """Count of one tail group (int64 0-d tensor), the one-group call of
+    kernel E; see the module docstring."""
+    _check(src_rows, dst_rows, su, dv, words)
+    if not on_cuda("hub_tail_count", src_rows, dst_rows, su, dv):
+        return hub_tail_count_plain(src_rows, dst_rows, su, dv, words=words,
+                                    wa=wa, wb=wb)
+    tables = types.SimpleNamespace(src_rows=src_rows, dst_rows=dst_rows)
+    return hub_tail_count_all(plan_tail_count(
+        tables, [(su, dv)], [(wa, wb)], words)).sum()
 
 
 hub_tail_count.launches = 0

@@ -6,7 +6,13 @@ graphminer_tpu/ops/pallas_ring.py::_kernel (and of its XLA twin
 ops/ring.py::_cbucket_partials): Σ_r Σ_s popcount(src_bm[r] &
 table[dst_loc[r, s]]), where a slot outside [0, rows of table) gives 0. It
 serves phase C (table = the core bitmaps) and the phase-T bitmap pass
-(table = the dense bm_table).
+(table = the dense bm_table). One launch counts every such bucket of a
+layout: plan_phase_c reads the buckets once per layout and lists, slice by
+slice (8 words, one 32-byte sector), the (src row, slice) pairs whose src
+slice is non-zero, cut into one range of equal work per block;
+ring_phase_c_all launches B once over that list (int64 partials whose sum
+is the count). ring_phase_c is the one-bucket call of the same kernel. Both
+count their launches on ring_phase_c.launches.
 
 C replaces ops/ring.py::_tail_pairs_partials: for every task i, the number
 of non-SENTINEL ids shared by table_a[sa[i]] and table_b[sb[i]] (rows
@@ -35,34 +41,258 @@ import torch
 
 from ..types import SENTINEL
 from . import _build
-from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
+from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
 from ._tiles import plan_tiles
+
+
+#: words of a slice of kernel B: one 32-byte sector of a row
+SLICE = 8
+#: most slots of one work item (a run of one row's slots in one slice)
+PIECE = 64
+#: an item packs its first slot and its length as off << LEN_BITS | len
+LEN_BITS = 8
+#: most rows of a table whose slice kernel B stages in shared memory
+#: (4096 x 32 B = 128 KB: the ring layout's core table)
+STAGE_ROWS = 4096
+#: the planner's cost of an item beyond its slots (the warp's scan and the
+#: item's src sector), in slots
+ITEM_COST = 8
+#: the planner's cost of a slot of an unstaged table, in staged slots: its
+#: table sector comes from L2 or HBM, not shared memory (at rmat18 a slot
+#: of the bitmap pass takes about 2.6x one of phase C:
+#: chip_smoke.py::phase_c_groups, PERF.md)
+DIRECT_COST = 2.6
+#: fields of a phase-C bucket record: table, n_table, src_bm, dst_loc,
+#: words, wc, staged (csrc/ring_phase_c.cu reads them in this order)
+PHASE_C_BREC = 7
+#: fields of a phase-C tile record: bucket, slice, first item, items
+PHASE_C_TREC = 4
+
+
+def _check_phase_c(table, src_bm, dst_loc):
+    if src_bm.dim() != 2 or table.dim() != 2 or \
+            table.shape[1] != src_bm.shape[1] or dst_loc.dim() != 2 or \
+            dst_loc.shape[0] != src_bm.shape[0]:
+        raise ValueError(f"phase-C shapes disagree: table {tuple(table.shape)}"
+                         f" src_bm {tuple(src_bm.shape)} dst_loc "
+                         f"{tuple(dst_loc.shape)}")
+
+
+def phase_c_units(table: torch.Tensor, src_bm: torch.Tensor,
+                  dst_loc: torch.Tensor):
+    """The work of one bucket, read from its data once per layout: host
+    int64 arrays (slices, rows, lens, valid) over every (src row, slice)
+    pair whose src slice is non-zero and whose row has a slot inside the
+    table, slice-major and rows ascending; lens is 1 + the row's last such
+    slot, valid the number of such slots. Every other pair counts 0."""
+    n, words = src_bm.shape
+    wc = dst_loc.shape[1]
+    empty = np.zeros(0, np.int64)
+    if n == 0 or wc == 0:
+        return empty, empty, empty, empty
+    n_t = table.shape[0]
+    pos = torch.arange(1, wc + 1, dtype=torch.int32, device=dst_loc.device)
+    step = max(1, PLAIN_ELEMS // wc)
+    last, valid = [], []
+    for r0 in range(0, n, step):
+        d = dst_loc[r0:r0 + step]
+        ok = (d >= 0) & (d < n_t)
+        last.append((ok * pos).amax(dim=1))
+        valid.append(ok.sum(dim=1))
+    last, valid = torch.cat(last), torch.cat(valid)
+    nz = (src_bm.reshape(n, -1, SLICE) != 0).any(dim=2) & (last > 0)[:, None]
+    s, r = torch.nonzero(nz.t(), as_tuple=True)
+    return (s.cpu().numpy().astype(np.int64), r.cpu().numpy().astype(np.int64),
+            last[r].cpu().numpy().astype(np.int64),
+            valid[r].cpu().numpy().astype(np.int64))
+
+
+def plan_phase_c_units(units, table_keys, staged, n_parts: int):
+    """Items, tiles and block ranges of kernel B from each bucket's
+    phase_c_units (slices, rows, lens, ...), a key naming its table and
+    whether the kernel stages that table.
+
+    Order: tables in order of first appearance; within a table, slice by
+    slice; within a slice, bucket by bucket, rows ascending. Each (row,
+    slice) pair becomes ceil(len / PIECE) items of at most PIECE slots.
+    Returns (items int32 [n, 2] = (row, off << LEN_BITS | len), tiles int64
+    [n_tiles, PHASE_C_TREC] = (bucket, slice, first item, items),
+    block_tiles int64 [n_parts + 1]): part b of equal work (slots +
+    ITEM_COST an item) is tiles [block_tiles[b], block_tiles[b + 1]), and a
+    tile lies in one (bucket, slice); a slot of an unstaged table weighs
+    DIRECT_COST."""
+    seg_b, seg_s, pieces = [], [], []
+    order = list(dict.fromkeys(table_keys))
+    for key in order:
+        mine = [b for b, k in enumerate(table_keys) if k == key]
+        top = max((int(units[b][0].max()) + 1 for b in mine
+                   if units[b][0].size), default=0)
+        for s in range(top):
+            for b in mine:
+                sl, rows, lens = units[b][0], units[b][1], units[b][2]
+                lo, hi = np.searchsorted(sl, [s, s + 1])
+                if hi > lo:
+                    seg_b.append(b)
+                    seg_s.append(s)
+                    pieces.append((rows[lo:hi], lens[lo:hi],
+                                   1.0 if staged[b] else DIRECT_COST))
+    if not pieces:
+        return (np.zeros((0, 2), np.int32), np.zeros((0, PHASE_C_TREC),
+                                                     np.int64),
+                np.zeros(n_parts + 1, np.int64))
+    rows = np.concatenate([p[0] for p in pieces])
+    lens = np.concatenate([p[1] for p in pieces])
+    seg_items = np.array([p[0].size for p in pieces], np.int64)
+    weight = np.repeat([p[2] for p in pieces], seg_items)
+    n_pc = -(-lens // PIECE)
+    rep = np.repeat(np.arange(rows.size), n_pc)
+    first_piece = np.concatenate([[0], np.cumsum(n_pc)[:-1]])
+    off = (np.arange(rep.size) - first_piece[rep]) * PIECE
+    plen = np.minimum(PIECE, lens[rep] - off)
+    if off.size and int(off.max()) >= 1 << (31 - LEN_BITS):
+        raise ValueError("plan_phase_c: rows of more than 2^23 slots")
+    items = np.stack([rows[rep], off << LEN_BITS | plen], 1).astype(np.int32)
+    seg_pieces = np.bincount(np.repeat(np.arange(seg_items.size), seg_items),
+                             weights=n_pc, minlength=seg_items.size)
+    seg_first = np.concatenate([[0], np.cumsum(seg_pieces)[:-1]]
+                               ).astype(np.int64)
+    cum = np.cumsum(plen * weight[rep] + ITEM_COST)
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(n_parts + 1) / n_parts,
+                           side="right").astype(np.int64)
+    cuts[-1] = items.shape[0]
+    bounds = np.union1d(seg_first, cuts[:-1])
+    tile_first = bounds[bounds < items.shape[0]]
+    tile_count = np.diff(np.concatenate([tile_first, [items.shape[0]]]))
+    seg = np.searchsorted(seg_first, tile_first, side="right") - 1
+    tiles = np.stack([np.asarray(seg_b)[seg], np.asarray(seg_s)[seg],
+                      tile_first, tile_count], 1).astype(np.int64)
+    block_tiles = np.searchsorted(tile_first, cuts).astype(np.int64)
+    return items, tiles, block_tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseCPlan:
+    """A layout's phase-C and bitmap-pass buckets and kernel B's work list,
+    on the buckets' device. The records hold raw pointers, so the plan
+    keeps the tensors referenced for as long as it lives. l2_bytes is what
+    one launch reads past L1, in the kernel's own terms: the items, the
+    slots of each item, one src sector an item, each staged slice once a
+    block and one table sector a valid task of an unstaged table."""
+    groups: Tuple[Tuple[torch.Tensor, ...], ...]   # (table, src_bm, dst_loc)
+    table: Optional[torch.Tensor]   # int64 records | tiles | block ranges
+    items: Optional[torch.Tensor]   # int32 [n_items, 2]
+    n_tiles: int
+    n_blocks: int
+    stage_rows: int
+    l2_bytes: int
+    device: torch.device
+
+
+def plan_phase_c(groups: Sequence[Tuple[torch.Tensor, ...]],
+                 device=None) -> PhaseCPlan:
+    """The plan of one layout's kernel-B buckets, each (table, src_bm,
+    dst_loc), all on one device (`device` names it when there is none).
+    For CUDA tensors it reads the buckets once (phase_c_units), builds the
+    work list with one part per block of a full wave, and copies it to the
+    card."""
+    groups = tuple(tuple(gr) for gr in groups)
+    for gr in groups:
+        _check_phase_c(*gr)
+    tensors = [t for gr in groups for t in gr]
+    if not tensors:
+        return PhaseCPlan((), None, None, 0, 0, 0, 0,
+                          torch.device(device or "cpu"))
+    if not on_cuda("ring_phase_c_all", *tensors):
+        return PhaseCPlan(groups, None, None, 0, 0, 0, 0, tensors[0].device)
+    for table, src_bm, _ in groups:
+        if src_bm.shape[1] % SLICE:
+            raise ValueError(f"kernel reads {SLICE}-word slices: words="
+                             f"{src_bm.shape[1]}")
+        if table.data_ptr() % 16 or src_bm.data_ptr() % 16:
+            raise ValueError("kernel reads 16-byte chunks: rows must be "
+                             "aligned")
+    staged = [t.shape[0] <= STAGE_ROWS for t, _, _ in groups]
+    stage_rows = max((t.shape[0] for (t, _, _), s in zip(groups, staged)
+                      if s), default=0)
+    n_parts = _build.wave_blocks("gm_ring_phase_c_blocks",
+                                 torch.cuda.current_device(), stage_rows)
+    units = [phase_c_units(*gr) for gr in groups]
+    items, tiles, block_tiles = plan_phase_c_units(
+        units, [t.data_ptr() for t, _, _ in groups], staged, n_parts)
+    recs = np.array([(t.data_ptr(), t.shape[0], s.data_ptr(), d.data_ptr(),
+                      s.shape[1], d.shape[1], int(st))
+                     for (t, s, d), st in zip(groups, staged)], np.int64)
+    dev = tensors[0].device
+    table = torch.from_numpy(np.concatenate(
+        [recs.reshape(-1), tiles.reshape(-1), block_tiles]))
+    return PhaseCPlan(groups, table.to(dev), torch.from_numpy(items).to(dev),
+                      tiles.shape[0], n_parts, stage_rows,
+                      phase_c_l2_bytes(units, staged, [t.shape[0] for t, _, _
+                                                       in groups],
+                                       items, tiles, block_tiles),
+                      dev)
+
+
+def phase_c_l2_bytes(units, staged, n_tables, items, tiles,
+                     block_tiles) -> int:
+    """The bytes one launch of kernel B reads past L1 over a work list:
+    8 a record and 4 a slot of each item, one 32-byte src sector an item,
+    each staged slice once for every run of tiles of one (table, slice) in
+    a block, one 32-byte table sector a valid task of an unstaged table,
+    and 8 a partial."""
+    sector = 4 * SLICE
+    n = items.shape[0] * (8 + sector) + 4 * int(
+        (items[:, 1] & ((1 << LEN_BITS) - 1)).sum())
+    n += sector * sum(int(u[3].sum()) for u, st in zip(units, staged)
+                      if not st)
+    for b in range(block_tiles.size - 1):
+        last = None
+        for bk, sl, _, _ in tiles[block_tiles[b]:block_tiles[b + 1]]:
+            if staged[bk] and (bk, sl) != last:
+                n += sector * n_tables[bk]
+            last = (bk, sl)
+    return n + 8 * (block_tiles.size - 1)
+
+
+def ring_phase_c_all(plan: PhaseCPlan) -> torch.Tensor:
+    """Kernel B over every bucket of `plan` in one launch: int64 [n]
+    partial counts on the plan's device whose sum is the count (one per
+    block). On the CPU, the plain version."""
+    if plan.table is None:
+        return ring_phase_c_all_plain(plan)
+    dev = plan.device
+    if plan.n_tiles == 0:
+        return torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = _build.kernels()
+    out = torch.empty(plan.n_blocks, dtype=torch.int64, device=dev)
+    base = plan.table.data_ptr()
+    tiles = base + len(plan.groups) * PHASE_C_BREC * 8
+    blocks = tiles + plan.n_tiles * PHASE_C_TREC * 8
+    _build.check_launch(lib.gm_ring_phase_c(
+        base, tiles, blocks, plan.items.data_ptr(), plan.stage_rows,
+        out.data_ptr(), plan.n_blocks,
+        torch.cuda.current_stream(dev).cuda_stream), "ring_phase_c")
+    ring_phase_c.launches += 1
+    return out
+
+
+def ring_phase_c_all_plain(plan: PhaseCPlan) -> torch.Tensor:
+    """Plain version of ring_phase_c_all: the sum of the per-bucket plain
+    counts, as an int64 [1] tensor."""
+    total = torch.zeros(1, dtype=torch.int64, device=plan.device)
+    for gr in plan.groups:
+        total += ring_phase_c_plain(*gr)
+    return total
 
 
 def ring_phase_c(table: torch.Tensor, src_bm: torch.Tensor,
                  dst_loc: torch.Tensor) -> torch.Tensor:
-    """Σ popcount(src_bm[r] & table[dst_loc[r, s]]) over valid slots."""
-    n, words = src_bm.shape
-    if table.dim() != 2 or table.shape[1] != words or \
-            dst_loc.dim() != 2 or dst_loc.shape[0] != n:
-        raise ValueError(f"phase-C shapes disagree: table {tuple(table.shape)}"
-                         f" src_bm {tuple(src_bm.shape)} dst_loc "
-                         f"{tuple(dst_loc.shape)}")
+    """Σ popcount(src_bm[r] & table[dst_loc[r, s]]) over valid slots: the
+    one-bucket call of kernel B."""
+    _check_phase_c(table, src_bm, dst_loc)
     if not on_cuda("ring_phase_c", table, src_bm, dst_loc):
         return ring_phase_c_plain(table, src_bm, dst_loc)
-    wc = dst_loc.shape[1]
-    if n == 0 or wc == 0:
-        return torch.zeros((), dtype=torch.int64, device=src_bm.device)
-    lib = _build.kernels()
-    nb = n_blocks(n * 32)                      # one warp per src row
-    out = torch.empty(nb, dtype=torch.int64, device=src_bm.device)
-    _build.check_launch(lib.gm_ring_phase_c(
-        table.data_ptr(), table.shape[0], src_bm.data_ptr(),
-        dst_loc.data_ptr(), n, words, wc, out.data_ptr(), nb,
-        torch.cuda.current_stream(src_bm.device).cuda_stream),
-        "ring_phase_c")
-    ring_phase_c.launches += 1
-    return out.sum()
+    return ring_phase_c_all(plan_phase_c([(table, src_bm, dst_loc)])).sum()
 
 
 ring_phase_c.launches = 0

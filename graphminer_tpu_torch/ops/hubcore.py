@@ -39,7 +39,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
-from .cuda_hubcore import hub_tail_count
+from .cuda_hubcore import hub_tail_count, hub_tail_count_all, plan_tail_count
 
 # T-slot width classes (powers of four — tails are short by design).
 T_CLASSES = (0, 16, 64, 256, 1024, 4096)
@@ -276,7 +276,7 @@ class TriangleEngine:
       * the spoke product — every edge whose dst is in the core,
         gather-free on the tensor cores;
       * the tail groups — only edges with BOTH endpoints outside the core
-        (popcount + short tail compare, kernel E)."""
+        (popcount + short tail compare, one launch of kernel E)."""
 
     def __init__(self, g, core: int = DEFAULT_CORE,
                  chunk: int = DEFAULT_CHUNK, tile: int = 512,
@@ -296,6 +296,9 @@ class TriangleEngine:
         self.tables, groups = bucket_tail_tasks(lay, src[tail], dst[tail])
         self.group_arrays, self.spec = pack_groups(groups, chunk=chunk,
                                                    device=dev)
+        # kernel E's tile table over every group, on the device
+        self.tail_plan = plan_tail_count(self.tables, self.group_arrays,
+                                         self.spec, lay.words)
         self.n_tail_tasks = int(tail.sum())
         self.n_edges = int(src.shape[0])
 
@@ -311,10 +314,9 @@ class TriangleEngine:
         return torch.nn.functional.pad(rows, (0, 0, 0, n - keep.shape[0]))
 
     def tail_partials(self) -> torch.Tensor:
-        """int64 [n_groups] tail-group counts, on the device."""
-        return _tail_partials(self.tables.src_rows, self.tables.dst_rows,
-                              self.group_arrays, spec=self.spec,
-                              words=self.layout.words)
+        """int64 partial tail counts on the device, whose sum is the tail
+        count: one launch of kernel E over every group."""
+        return hub_tail_count_all(self.tail_plan)
 
     def core_partials(self) -> torch.Tensor:
         """int64 [core] spoke counts per core row, on the device."""

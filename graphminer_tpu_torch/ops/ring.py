@@ -7,11 +7,13 @@ row ONCE and pays per task only an int32 index or a short list slot:
   degree-ascending relabeled DAG). Tasks are grouped BY SRC: each src's
   core bitmap row CB[u] is stored once per bucket row, and each task
   contributes one core-local dst index. Count = popcount(CB[u] & CORE[dst]),
-  kernel B (ops/cuda_ring.py), whose 2 MB core table stays in the L2 cache.
+  kernel B (ops/cuda_ring.py), which stages the 2 MB core table in shared
+  memory one 8-word slice at a time.
 
 * Phase T — tasks whose dst is OUTSIDE the core. |N+(u) ∩ N+(v)| =
   popcount(CB[u] & CB[v]) + |T[u] ∩ T[v]|: the bitmap part is kernel B again
-  over the dense bm_table, grouped by src; the tail part gathers each side's
+  over the dense bm_table, grouped by src, in the same launch as phase C
+  (RingEngine's phase_c_plan); the tail part gathers each side's
   short tail from per-class tail tables (every vertex's tail stored once at
   its own width class) and is kernel C, ONE launch over every tail bucket
   through a tile table built once per layout (RingEngine's tail_plan).
@@ -32,7 +34,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
-from .cuda_ring import plan_tail_pairs, ring_phase_c, ring_tail_pairs_all
+from .cuda_ring import (plan_phase_c, plan_tail_pairs, ring_phase_c_all,
+                        ring_tail_pairs_all)
 
 CORE = 4096
 # src core-out-degree classes for phase C (dst-index slots per src row)
@@ -346,24 +349,24 @@ class RingEngine:
         self.layout = layout
         self.n_edges = layout.n_tasks
         self.device = layout.core_bm.device
-        # the tile table of kernel C, on the device; it holds the tbuckets'
+        # kernel B's work list over the phase-C and bitmap-pass buckets and
+        # kernel C's tile table, on the device; each holds its buckets'
         # pointers and keeps their tensors referenced
+        self.phase_c_plan = plan_phase_c(
+            [(layout.core_bm, b.src_bm, b.dst_loc) for b in layout.cbuckets]
+            + [(layout.bm_table, b.src_bm, b.dst_loc)
+               for b in layout.bbuckets], device=self.device)
         self.tail_plan = plan_tail_pairs(
             [(layout.tail_tables[b.ta], layout.tail_tables[b.tv], b.src_slot,
               b.dst_slot) for b in layout.tbuckets], device=self.device)
 
     def partials(self) -> torch.Tensor:
         """int64 partial counts left on the device, whose sum is the count:
-        one per bucket of phase C (kernel B over the core table) and of the
-        phase-T bitmap pass (kernel B over bm_table), then the partials of
-        one launch of kernel C over every tail bucket."""
-        lay = self.layout
-        outs = ([ring_phase_c(lay.core_bm, b.src_bm, b.dst_loc)
-                 for b in lay.cbuckets]
-                + [ring_phase_c(lay.bm_table, b.src_bm, b.dst_loc)
-                   for b in lay.bbuckets])
-        tails = ring_tail_pairs_all(self.tail_plan)
-        return torch.cat([torch.stack(outs), tails]) if outs else tails
+        those of one launch of kernel B over every phase-C and bitmap-pass
+        bucket, then those of one launch of kernel C over every tail
+        bucket."""
+        return torch.cat([ring_phase_c_all(self.phase_c_plan),
+                          ring_tail_pairs_all(self.tail_plan)])
 
     def count(self) -> int:
         from ..utils.profiling import PROFILER

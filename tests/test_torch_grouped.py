@@ -241,9 +241,15 @@ def test_ring_partials_equal_jax_ring_partials(rand_graphs):
         parts = eng.partials()
         assert parts.dtype == torch.int64 and parts.dim() == 1
         lay = eng.layout
-        n_b = len(lay.cbuckets) + len(lay.bbuckets)
+        # kernel B's partials over every phase-C and bitmap-pass bucket,
+        # then kernel C's
+        heads = cuda_ring.ring_phase_c_all(eng.phase_c_plan)
         tails = cuda_ring.ring_tail_pairs_all(eng.tail_plan)
-        assert torch.equal(parts[n_b:], tails)
+        assert torch.equal(parts, torch.cat([heads, tails]))
+        assert int(heads.sum()) == sum(
+            int(cuda_ring.ring_phase_c_plain(t, b.src_bm, b.dst_loc))
+            for t, bs in ((lay.core_bm, lay.cbuckets),
+                          (lay.bm_table, lay.bbuckets)) for b in bs)
         assert int(tails.sum()) == sum(
             int(cuda_ring.ring_tail_pairs_plain(
                 lay.tail_tables[b.ta], lay.tail_tables[b.tv], b.src_slot,

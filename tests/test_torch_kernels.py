@@ -1,5 +1,5 @@
 """Kernels A-E, m3, m3b and R against their plain PyTorch versions on a
-CUDA card, A and C also as one grouped launch over many buckets.
+CUDA card, A, B, C and E also as one grouped launch over many buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -9,6 +9,8 @@ Run them on a machine with a card:
 
 (--noconftest: tests/conftest.py imports JAX, which such a machine may lack.)
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from graphminer_tpu_torch.ops.stream import StreamEngine
 
 pytestmark = pytest.mark.cuda
 SENTINEL = 0x7FFFFFFF
+RowTables = collections.namedtuple("RowTables", "src_rows dst_rows")
 
 
 @pytest.fixture
@@ -122,6 +125,61 @@ def test_ring_phase_c(dev, wc):
         int(cuda_ring.ring_phase_c_plain(*args))
 
 
+#: (table, n rows, wc) per bucket: the 4096-row core table (staged), a
+#: 20,000-row bitmap table (read in place), one-row and empty buckets, wc 4
+#: to 4096
+PHASE_C_SETS = {
+    "mixed": [("core", 1, 4), ("core", 300, 16), ("bm", 500, 64),
+              ("core", 40, 256), ("bm", 3, 4), ("core", 0, 16),
+              ("core", 2, 4096)],
+    "bitmap only": [("bm", 900, 16), ("bm", 60, 1024)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PHASE_C_SETS))
+def test_ring_phase_c_all(dev, name):
+    rng = np.random.default_rng(len(name))
+    tables = {"core": words(rng, 4096, 128), "bm": words(rng, 20000, 128)}
+    groups = []
+    for key, n, wc in PHASE_C_SETS[name]:
+        src = words(rng, n, 128)
+        src.reshape(n, 16, 8)[rng.random((n, 16)) < 0.5] = 0
+        dl = rng.integers(-3, tables[key].shape[0] + 3, (n, wc)
+                          ).astype(np.int32)
+        dl[rng.random((n, wc)) < 0.1] = SENTINEL
+        groups.append(tuple(torch.from_numpy(x).to(dev)
+                            for x in (tables[key], src, dl)))
+    plan = cuda_ring.plan_phase_c(groups)
+    before = cuda_ring.ring_phase_c.launches
+    got = cuda_ring.ring_phase_c_all(plan)
+    assert cuda_ring.ring_phase_c.launches == before + 1
+    assert got.dtype == torch.int64 and got.dim() == 1
+    assert int(got.sum()) == int(cuda_ring.ring_phase_c_all_plain(plan))
+
+
+@pytest.mark.parametrize("nw,wt", [(128, 48), (8, 8), (32, 0)])
+def test_hub_tail_count_all(dev, nw, wt):
+    rng = np.random.default_rng(nw + wt)
+    sr = np.concatenate([words(rng, 400, nw), tails(rng, 400, wt)], 1)
+    dr = np.concatenate([words(rng, 200, nw), tails(rng, 200, wt)], 1)
+    tables = RowTables(*(torch.from_numpy(x).to(dev) for x in (sr, dr)))
+    arrays, spec = [], []
+    for n, wa, wb in [(3000, 16, 16), (1, 64, 16), (0, 16, 64),
+                      (5000, 0, 0), (700, 16, 1024)]:
+        su = rng.integers(-2, 402, n + 50).astype(np.int32)
+        dv = np.sort(rng.integers(-2, 202, n + 50)).astype(np.int32)
+        su[n:] = dv[n:] = SENTINEL
+        arrays.append((torch.from_numpy(su).to(dev),
+                       torch.from_numpy(dv).to(dev)))
+        spec.append((wa, wb, n + 50))
+    plan = cuda_hubcore.plan_tail_count(tables, arrays, spec, nw)
+    before = cuda_hubcore.hub_tail_count.launches
+    got = cuda_hubcore.hub_tail_count_all(plan)
+    assert cuda_hubcore.hub_tail_count.launches == before + 1
+    assert got.dtype == torch.int64 and got.dim() == 1
+    assert int(got.sum()) == int(cuda_hubcore.hub_tail_count_all_plain(plan))
+
+
 @pytest.mark.parametrize("wa,wb", [(8, 8), (64, 2048), (2048, 16)])
 def test_ring_tail_pairs(dev, wa, wb):
     rng = np.random.default_rng(wa * wb)
@@ -192,6 +250,19 @@ def test_engine_counts_launch_a_and_c_once(dev):
     assert se.count() == want and re_.count() == want
     assert (cuda_stream.stream_bucket_count.launches,
             cuda_ring.ring_tail_pairs.launches) == (a + 1, c + 1)
+
+
+def test_engine_counts_launch_b_and_e_once(dev):
+    g = rmat(12, 16, seed=7)
+    re_ = RingEngine(g, core=256, device=dev)
+    he = TriangleEngine(g, core=256, chunk=1024, device=dev)
+    assert len(re_.layout.cbuckets) + len(re_.layout.bbuckets) > 1
+    assert len(he.spec) > 1
+    b, e = cuda_ring.ring_phase_c.launches, cuda_hubcore.hub_tail_count.launches
+    want = StreamEngine(g, core=256, device="cpu").count()
+    assert re_.count() == want and he.count() == want
+    assert (cuda_ring.ring_phase_c.launches,
+            cuda_hubcore.hub_tail_count.launches) == (b + 1, e + 1)
 
 
 def test_engines_rmat14_golden(dev):
