@@ -31,8 +31,12 @@ no result line) when any phase fails:
      single launch, A also over groups of the rmat18 buckets; B also with
      the bytes it reads past L1), the spoke product (torch._int_mm) against
      its operations bound, the device-busy share of stream, ring and
-     hub-core counts from torch.profiler, and kernel R's and torch.mul's
-     device time alone (torch.profiler).
+     hub-core counts from torch.profiler; the device time alone
+     (torch.profiler) of D at each of prof_breakdown's shapes, of m3 and
+     m3b, and of R and torch.mul,
+     failing unless a D call and a window_count call each run one kernel
+     and no other device op; and R's host time a call, split into the
+     parts of its wrapper's path (host clock over 10,000 calls).
 
 Each path of phases 2 and 4-6 runs with every launch count set to 0 just
 before it, and its counts are read just after. The line before the last is
@@ -437,17 +441,23 @@ def kernel_checks_random_slice2(rng, t):
                 cuda_hubcore.hub_tail_count_plain(*args, **kw),
                 f"random words={words} wt={wt} wa={wa} wb={wb}")
         n_cases += 1
-    # m3, m3b: windows that fit shared memory whole (W = 8) and windows
-    # split by columns, starts and local indices partly out of range
+    # m3 and m3b: narrow (W = 8) and wide windows, starts and local indices
+    # partly out of range; chunk counts no multiple of the wave, cap no
+    # multiple of a pass of task rows, W = 12
     for tk, cap, span, w, nd in ((4096, 512, 256, 8, 3000),
                                  (4096, 512, 256, 128, 3000),
                                  (65536, 8192, 1024, 128, 57344),
                                  (8192, 1024, 1024, 8, 5000),
-                                 (4096, 512, 4096, 16, 5000)):
+                                 (4096, 512, 4096, 16, 5000),
+                                 (300 * 520, 520, 300, 8, 1000),
+                                 (5 * 77, 77, 10, 12, 40),
+                                 (7 * 1000, 1000, 1000, 128, 1500),
+                                 (133 * 64, 64, 512, 32, 600)):
         nck = tk // cap
         tbl, src = t(_words(rng, (nd, w))), t(_words(rng, (nck, cap, w)))
         st = t(rng.integers(-100, nd + 100, size=nck).astype(np.int32))
-        li = t(rng.integers(-3, span + 3, size=(nck, cap)).astype(np.int32))
+        li = t(np.sort(rng.integers(-3, span + 3, size=(nck, cap)), axis=1
+                       ).astype(np.int32))
         want = cuda_window.window_count_plain(src, tbl, st, li, span=span)
         for name, r in WINDOW_ROWS.items():
             compare(name, cuda_window.window_count(
@@ -804,22 +814,58 @@ def busy_share(label, eng, kernels, counts=5):
         f"count: " + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
 
-def device_ms(fn, calls=200):
-    """The device time of one fn() call in ms: the kernels torch.profiler
-    records over `calls` calls after warm-up, summed, over `calls`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+def device_ms(fn, kernel=None, calls=200):
+    """The device time of one fn() call in ms (torch.profiler over `calls`
+    calls after warm-up). With `kernel` (the name of a __global__ function),
+    fails unless that kernel is the one device op the calls run, besides a
+    memset a call at most, and it ran at most once a call (the profiler can
+    miss an event at the edge of its window: at least 0.9 a call)."""
+    from graphminer_tpu_torch.utils.profiling import device_ms as alone
+    ms, ops = alone(fn, calls)
+    if kernel is not None:
+        kernels = {k: v for k, v in ops.items() if "emset" not in k}
+        memsets = sum(v for k, v in ops.items() if "emset" in k)
+        check(len(kernels) == 1 and kernel in next(iter(kernels))
+              and 0.9 <= next(iter(kernels.values())) <= 1.0
+              and memsets <= 1.0,
+              f"a call of {kernel} ran other device work: {ops}")
+    return ms
+
+
+def r_host_split(calls=10_000):
+    """Kernel R's host time a call in us (host clock over `calls` calls,
+    synchronized at the end), torch.mul's beside it, and the parts of the
+    wrapper's path, each timed alone."""
+    from graphminer_tpu_torch.ops import _build, _tensors, cuda_check
+    x = torch.ones((8, 128), dtype=torch.int32, device="cuda")
+    out, dev = torch.empty_like(x), x.device
+    n, nb = x.numel(), _tensors.n_blocks(x.numel())
+    fn, st = _build.entry("gm_times_two"), _build.stream(dev)
+    parts = {
+        "times_two(x)": lambda: cuda_check.times_two(x),
+        "torch.mul(x, 2)": lambda: torch.mul(x, 2),
+        "on_cuda": lambda: _tensors.on_cuda("times_two", x),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "n_blocks": lambda: _tensors.n_blocks(n),
+        "kernels()": _build.kernels,
+        "entry() lookup": lambda: _build.entry("gm_times_two"),
+        "stream() raw handle": lambda: _build.stream(dev),
+        "ctypes call with its launch": lambda: fn(
+            x.data_ptr(), out.data_ptr(), n, nb, st),
+    }
+    res = {}
+    for name, f in parts.items():
+        for _ in range(100):
+            f()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(dev, "torch.profiler recorded no device event")
-    return sum(e.time_range.elapsed_us() for e in dev) / calls / 1e3
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            f()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / calls * 1e6
+    say(f"[{CARD}] times_two host us a call ({calls} calls): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in res.items()))
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -950,28 +996,35 @@ def timing_slice(hub_eng, pb, pw):
 
     # D: prof_breakdown's eight shapes; the library yardstick is one
     # embedding_bag over the whole index list (exact in float64 below 2^53)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               device_ms=0.0)
     for w in prof_breakdown.FETCH_WIDTHS:
         for n in prof_breakdown.FETCH_COUNTS:
             idx, tbl = prof_breakdown.fetch_inputs(w, n, 0, dev)
             t64 = tbl.double()
+            call = lambda: fetch.fetch_rows_sum(idx, tbl, prof_breakdown.N_BUF)
             k, p, kv, pv = in_turns(
-                lambda: fetch.fetch_rows_sum(idx, tbl, prof_breakdown.N_BUF),
-                lambda: fetch.fetch_rows_sum_plain(idx, tbl))
+                call, lambda: fetch.fetch_rows_sum_plain(idx, tbl))
             compare("fetch_rows_sum", kv, pv, f"w={w} n={n}")
+            d_ms = device_ms(call, "fetch_rows_sum_kernel")
             lib_ms, lv = time_ms(
                 lambda: F.embedding_bag(idx[None], t64, mode="sum"))
             check(torch.equal(lv.to(torch.int64), kv.to(torch.int64)),
                   f"embedding_bag != fetch_rows_sum at w={w} n={n}")
             b_ms, _ = prof_breakdown.fetch_bound(idx, w)
             for key, v in (("ms", k), ("plain_ms", p), ("bound_ms", b_ms),
-                           ("library_ms", lib_ms)):
+                           ("library_ms", lib_ms), ("device_ms", d_ms)):
                 tot[key] += v
-            say(f"[{CARD}] fetch_rows_sum w={w} n={n}: kernel {k:.4f} ms, "
-                f"plain {p:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms (bytes)")
+            say(f"[{CARD}] fetch_rows_sum w={w} n={n}: kernel {k:.4f} ms "
+                f"(device alone {d_ms:.4f} ms, {n * w * 4 / d_ms / 1e6:.1f} "
+                f"GB/s on {n * w * 4} gathered bytes), plain {p:.4f} ms, "
+                f"embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes)")
             del t64
     res["fetch_rows_sum"] = dict(tot, bound_by="bytes")
+    say(f"[{CARD}] fetch_rows_sum, 8 shapes: kernel {tot['ms']:.4f} ms, "
+        f"device alone {tot['device_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms; one kernel and no other device op a "
+        f"call")
 
     # m3, m3b: prof_window's defaults
     span = prof_window.SPAN
@@ -980,17 +1033,18 @@ def timing_slice(hub_eng, pb, pw):
             prof_window.T, prof_window.CAP, span, prof_window.W))
     b_ms, b_by = pw["bound_ms"], pw["bound_by"]
     for name, r in WINDOW_ROWS.items():
+        kern = lambda: cuda_window.window_count(
+            srcs, table, starts, lidx, span=span, rows_per_step=r)
         k, p, kv, pv = in_turns(
-            lambda: cuda_window.window_count(srcs, table, starts, lidx,
-                                             span=span, rows_per_step=r),
-            lambda: cuda_window.window_count_plain(srcs, table, starts, lidx,
-                                                   span=span))
+            kern, lambda: cuda_window.window_count_plain(
+                srcs, table, starts, lidx, span=span))
         compare(name, kv, pv, "prof_window defaults")
+        d_ms = device_ms(kern, "window_count_kernel")
         res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None)
-        say(f"[{CARD}] {name} at prof_window defaults: kernel {k:.3f} ms, "
-            f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {pw['bytes']} "
-            f"bytes)")
+                         library_ms=None, device_ms=d_ms)
+        say(f"[{CARD}] {name} at prof_window defaults: kernel {k:.4f} ms "
+            f"(device alone {d_ms:.4f} ms), plain {p:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {pw['bytes']} bytes)")
     del srcs
 
     # R: [8, 128]; torch's own x * 2 is both the plain version and the
@@ -1002,15 +1056,18 @@ def timing_slice(hub_eng, pb, pw):
     lib_ms, _ = time_ms(lambda: torch.mul(x, 2))
     b_ms, b_by = bound_ms(2 * x.numel() * 4)
     # the device time alone, without the wrapper's dispatch
-    dev_ms = device_ms(lambda: cuda_check.times_two(x))
+    dev_ms = device_ms(lambda: cuda_check.times_two(x), "times_two")
     lib_dev_ms = device_ms(lambda: torch.mul(x, 2))
+    split = r_host_split()
     res["times_two"] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms, device_ms=dev_ms,
-                            library_device_ms=lib_dev_ms)
+                            library_device_ms=lib_dev_ms,
+                            host_us=split["times_two(x)"],
+                            library_host_us=split["torch.mul(x, 2)"])
     say(f"[{CARD}] times_two [8, 128]: kernel {k:.4f} ms, plain {p:.4f} "
-        f"ms, torch.mul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); on "
-        f"the device alone (torch.profiler): kernel {dev_ms:.5f} ms, "
-        f"torch.mul {lib_dev_ms:.5f} ms")
+        f"ms, torch.mul {lib_ms:.4f} ms ({k / lib_ms:.3f}x), bound "
+        f"{b_ms:.6f} ms ({b_by}); on the device alone (torch.profiler): "
+        f"kernel {dev_ms:.5f} ms, torch.mul {lib_dev_ms:.5f} ms")
     return res
 
 
@@ -1043,7 +1100,7 @@ def main():
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "library_device_ms")          # R's alone
+    extra = ("device_ms", "library_device_ms", "host_us", "library_host_us")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

@@ -1,10 +1,14 @@
 // Helpers shared by the port's hand-written Hopper kernels (sm_90a).
 //
-// Every kernel here writes ONE int64 partial per block (no atomics, so the
-// sum is deterministic) and the Python wrapper sums the partials in int64.
-// Words are read as uint32: bit 31 is set in real bitmap rows.
+// The engine kernels (A, B, C, E) write ONE int64 partial per block (no
+// atomics, so the sum is deterministic) and the Python wrapper sums the
+// partials in int64. The probe kernels D, m3 and m3b finish their result in
+// the launch itself (finish_int32). Words are read as uint32: bit 31 is set
+// in real bitmap rows.
 #pragma once
 
+#include <cassert>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -90,6 +94,49 @@ __device__ __forceinline__ void block_sum_store(unsigned long long v,
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
     if (lane == 0) out[blockIdx.x] = static_cast<long long>(v);
   }
+}
+
+// Block-wide sum of one value per thread, added by thread 0 to *dst with an
+// integer atomic (exact, so the order of the blocks' adds does not matter).
+// Every thread of the NT-thread block must call it.
+template <int NT = BLOCK>
+__device__ __forceinline__ void block_sum_add(unsigned long long v,
+                                              unsigned long long* dst) {
+  __shared__ unsigned long long warp_sums[NT / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = lane < (NT / 32) ? warp_sums[lane] : 0ull;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
+    if (lane == 0) atomicAdd(dst, v);
+  }
+  __syncthreads();                    // warp_sums is free for the next call
+}
+
+// The end of a kernel whose blocks add int64 sums into acc[0:n] with
+// atomics: workspace ws = {finish counter, acc[0:n]}, all zero when the
+// launch starts. The last block to arrive moves acc into out[0:n] as int32,
+// asserting on the device that each sum fits (a sum outside int32 is a
+// device-side assert, as torch._assert_async raises one), and leaves ws zero
+// for the next launch on the stream. Every thread of the block must call it,
+// after its own adds.
+__device__ __forceinline__ void finish_int32(unsigned long long* ws,
+                                             int64_t n, int32_t* out) {
+  __shared__ bool last;
+  __threadfence();                  // this thread's adds land before the count
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ws, 1ull) == gridDim.x - 1ull;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+    const long long s = static_cast<long long>(atomicExch(ws + 1 + i, 0ull));
+    assert(s >= INT_MIN && s <= INT_MAX);        // the int32 sum would wrap
+    out[i] = static_cast<int32_t>(s);
+  }
+  if (threadIdx.x == 0) atomicExch(ws, 0ull);
 }
 
 }  // namespace gm

@@ -16,11 +16,16 @@ rebuilt and an unchanged one is built once per checkout. A file lock
 serializes concurrent builds (several processes of one run).
 
 Each C entry point takes every pointer as c_void_p (tensor.data_ptr()),
-sizes as c_int64 and the stream as c_void_p
-(torch.cuda.current_stream().cuda_stream), launches on that stream without
+sizes as c_int64 and the stream as c_void_p (stream(device), the raw handle
+of the device's current stream), launches on that stream without
 synchronizing, and returns cudaGetLastError(). The *_blocks entry points
 return the blocks of one full wave of a persistent kernel's grid (SMs x
 resident blocks), or a negative CUDA error.
+
+A wrapper's host path is part of every timing of a small kernel, so it is
+kept short: once the library is loaded, kernels() returns it without the
+lock, entry() hands out each entry point's ctypes function from a dict, and
+stream() reads the raw stream handle without building a torch Stream.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -69,12 +76,18 @@ _SIGNATURES = {
                           _VP, _I64, _VP],
     # -> blocks of one full wave (negative: a CUDA error)
     "gm_hub_tail_count_blocks": [],
-    # idx, t, table, v, w, n_buf, partials, n_blocks, stream
-    "gm_fetch_rows_sum": [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _I64, _VP],
-    # src, table, nd, starts, lidx, nck, cap, w, span, wb, rows_per_step,
-    # partials, stream
+    # idx, t, table, v, w, n_buf, workspace, out, n_blocks, stream
+    "gm_fetch_rows_sum": [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _I64,
+                          _VP],
+    # vec (4: 16-byte lanes, 1: 4-byte), n_buf -> blocks of one full wave
+    # (negative: a CUDA error)
+    "gm_fetch_rows_sum_blocks": [_I64, _I64],
+    # src, table, nd, starts, lidx, nck, cap, w, span, rows_per_step,
+    # workspace, out, n_blocks, stream
     "gm_window_count": [_VP, _VP, _I64, _VP, _VP, _I64, _I64, _I64, _I64,
-                        _I64, _I64, _VP, _VP],
+                        _I64, _VP, _VP, _I64, _VP],
+    # rows_per_step -> blocks of one full wave (negative: a CUDA error)
+    "gm_window_count_blocks": [_I64],
     # x, o, n, n_blocks, stream
     "gm_times_two": [_VP, _VP, _I64, _I64, _VP],
 }
@@ -155,7 +168,15 @@ def build(path: str) -> None:
 
 
 def kernels():
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed. Once it is loaded
+    this takes no lock."""
+    lib = _lib
+    if lib is not None:
+        return lib
+    return _load()
+
+
+def _load():
     global _lib
     with _lock:
         if _lib is None:
@@ -167,8 +188,28 @@ def kernels():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _ENTRIES[name] = fn
             _lib = lib
         return _lib
+
+
+_ENTRIES = {}
+
+
+def entry(name: str):
+    """The ctypes function of the library's entry point `name` (loading the
+    library at first use)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        kernels()
+        fn = _ENTRIES[name]
+    return fn
+
+
+def stream(device) -> int:
+    """The raw handle (a cudaStream_t as an int) of the current stream of
+    the CUDA `device`, which must carry its index (a tensor's device does)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 _WAVES = {}
@@ -179,12 +220,14 @@ def wave_blocks(name: str, device_index: int, *args: int) -> int:
     blocks an SM holds), from its entry point `name` (a gm_*_blocks) called
     with `args`, asked once per device."""
     key = (name, device_index, *args)
-    if key not in _WAVES:
-        nb = getattr(kernels(), name)(*args)
+    nb = _WAVES.get(key)
+    if nb is None:
+        with torch.cuda.device(device_index):
+            nb = entry(name)(*args)
         if nb <= 0:
             raise RuntimeError(f"{name}: occupancy query failed ({nb})")
         _WAVES[key] = nb
-    return _WAVES[key]
+    return nb
 
 
 def check_launch(rc: int, name: str) -> None:

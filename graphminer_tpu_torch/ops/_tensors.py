@@ -15,22 +15,39 @@ PLAIN_ELEMS = 1 << 23
 def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor is an int32 CUDA tensor on one device, False
     when every one lies on the CPU; raises on anything else (mixed devices,
-    another dtype, a non-contiguous tensor for the kernel)."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on several devices: {devs}")
-    dev = devs.pop()
+    another dtype, a non-contiguous tensor for the kernel). One pass over
+    the tensors: it runs before every launch."""
+    dev = tensors[0].device
+    cuda = dev.type == "cuda"
+    if not cuda and dev.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {dev}")
     for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    for t in tensors:
-        if not t.is_contiguous():
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on several devices: {dev} "
+                             f"and {t.device}")
+        if cuda and not t.is_contiguous():
             raise ValueError(f"{name}: kernel needs contiguous tensors")
-    return True
+    return cuda
+
+
+_WORKSPACES = {}
+
+
+def workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """A zeroed int64 tensor of at least n elements on the CUDA `device`,
+    kept for the kernels launched on `stream` (its raw handle). A kernel
+    that takes it leaves it zeroed (its last block resets the finish counter
+    and the sums it used), so it is zeroed once, when it is made or grown,
+    and a call costs no memset. Launches on one stream run in order, so two
+    never hold it at once."""
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(max(n, 1024), dtype=torch.int64, device=device)
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def n_blocks(work_items: int) -> int:

@@ -24,10 +24,9 @@ def times_two(x: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n == 0:
         return out
-    nb = n_blocks(n)
-    _build.check_launch(_build.kernels().gm_times_two(
-        x.data_ptr(), out.data_ptr(), n, nb,
-        torch.cuda.current_stream(x.device).cuda_stream), "times_two")
+    _build.check_launch(_build.entry("gm_times_two")(
+        x.data_ptr(), out.data_ptr(), n, n_blocks(n),
+        _build.stream(x.device)), "times_two")
     times_two.launches += 1
     return out
 

@@ -139,16 +139,15 @@ def hub_tail_count_all(plan: TailCountPlan) -> torch.Tensor:
     dev = plan.src_rows.device
     if plan.n_tiles == 0:
         return torch.zeros(1, dtype=torch.int64, device=dev)
-    lib = _build.kernels()
     nb = min(plan.n_tiles, _build.wave_blocks(
-        "gm_hub_tail_count_blocks", torch.cuda.current_device()))
+        "gm_hub_tail_count_blocks", dev.index))
     out = torch.empty(nb, dtype=torch.int64, device=dev)
     sr, dr = plan.src_rows, plan.dst_rows
     tiles = plan.table.data_ptr() + len(plan.groups) * TAIL_BREC * 8
-    _build.check_launch(lib.gm_hub_tail_count(
+    _build.check_launch(_build.entry("gm_hub_tail_count")(
         sr.data_ptr(), sr.shape[0], dr.data_ptr(), dr.shape[0], sr.shape[1],
         plan.words, plan.table.data_ptr(), tiles, plan.n_tiles,
-        out.data_ptr(), nb, torch.cuda.current_stream(dev).cuda_stream),
+        out.data_ptr(), nb, _build.stream(dev)),
         "hub_tail_count")
     hub_tail_count.launches += 1
     return out

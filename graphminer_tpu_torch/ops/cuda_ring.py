@@ -215,7 +215,7 @@ def plan_phase_c(groups: Sequence[Tuple[torch.Tensor, ...]],
     stage_rows = max((t.shape[0] for (t, _, _), s in zip(groups, staged)
                       if s), default=0)
     n_parts = _build.wave_blocks("gm_ring_phase_c_blocks",
-                                 torch.cuda.current_device(), stage_rows)
+                                 tensors[0].device.index, stage_rows)
     units = [phase_c_units(*gr) for gr in groups]
     items, tiles, block_tiles = plan_phase_c_units(
         units, [t.data_ptr() for t, _, _ in groups], staged, n_parts)
@@ -263,15 +263,13 @@ def ring_phase_c_all(plan: PhaseCPlan) -> torch.Tensor:
     dev = plan.device
     if plan.n_tiles == 0:
         return torch.zeros(1, dtype=torch.int64, device=dev)
-    lib = _build.kernels()
     out = torch.empty(plan.n_blocks, dtype=torch.int64, device=dev)
     base = plan.table.data_ptr()
     tiles = base + len(plan.groups) * PHASE_C_BREC * 8
     blocks = tiles + plan.n_tiles * PHASE_C_TREC * 8
-    _build.check_launch(lib.gm_ring_phase_c(
+    _build.check_launch(_build.entry("gm_ring_phase_c")(
         base, tiles, blocks, plan.items.data_ptr(), plan.stage_rows,
-        out.data_ptr(), plan.n_blocks,
-        torch.cuda.current_stream(dev).cuda_stream), "ring_phase_c")
+        out.data_ptr(), plan.n_blocks, _build.stream(dev)), "ring_phase_c")
     ring_phase_c.launches += 1
     return out
 
@@ -402,16 +400,13 @@ def ring_tail_pairs_all(plan: TailPlan) -> torch.Tensor:
     dev = plan.device
     if plan.n_tiles == 0:
         return torch.zeros(1, dtype=torch.int64, device=dev)
-    lib = _build.kernels()
     nb = min(plan.n_tiles, _build.wave_blocks(
-        "gm_ring_tail_pairs_blocks", torch.cuda.current_device(),
-        plan.region))
+        "gm_ring_tail_pairs_blocks", dev.index, plan.region))
     out = torch.empty(nb, dtype=torch.int64, device=dev)
     tiles = plan.table.data_ptr() + len(plan.groups) * TAIL_BREC * 8
-    _build.check_launch(lib.gm_ring_tail_pairs(
+    _build.check_launch(_build.entry("gm_ring_tail_pairs")(
         plan.table.data_ptr(), tiles, plan.n_tiles, plan.region,
-        out.data_ptr(), nb, torch.cuda.current_stream(dev).cuda_stream),
-        "ring_tail_pairs")
+        out.data_ptr(), nb, _build.stream(dev)), "ring_tail_pairs")
     ring_tail_pairs.launches += 1
     return out
 

@@ -125,14 +125,13 @@ def stream_count_all(plan: StreamPlan) -> torch.Tensor:
     dev = plan.device
     if plan.n_tiles == 0:
         return torch.zeros(1, dtype=torch.int64, device=dev)
-    lib = _build.kernels()
     nb = min(plan.n_tiles, _build.wave_blocks(
-        "gm_stream_count_blocks", torch.cuda.current_device()))
+        "gm_stream_count_blocks", dev.index))
     out = torch.empty(nb, dtype=torch.int64, device=dev)
     tiles = plan.table.data_ptr() + len(plan.buckets) * BREC * 8
-    _build.check_launch(lib.gm_stream_count(
+    _build.check_launch(_build.entry("gm_stream_count")(
         plan.table.data_ptr(), tiles, plan.n_tiles, out.data_ptr(), nb,
-        torch.cuda.current_stream(dev).cuda_stream), "stream_count")
+        _build.stream(dev)), "stream_count")
     stream_bucket_count.launches += 1
     return out
 

@@ -11,24 +11,27 @@ its dst rows when they all lie in a small contiguous window of the table:
 
 with s_c = starts[c] clamped to [0, ND - span] as jax.lax.dynamic_slice
 clamps it; a local index outside [0, span) adds nothing. rows_per_step is 1
-for m3 and 8 for m3b. Sums are int64 on the device and returned as int32
-like the Pallas kernels' (a chunk's count is at most cap * W * 32, checked
-below 2^31). The wrapper takes the plain version below only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+for m3 and 8 for m3b: the task rows a thread takes per step. Sums are int64
+on the device and returned as int32 like the Pallas kernels' (a chunk's
+count is at most cap * W * 32, checked below 2^31). A CUDA call is one
+launch and no other device work: the kernel adds its block sums into a
+per-stream workspace and its last block writes the int32 counts
+(_tensors.workspace); a call with no tasks launches nothing and returns
+zeros. The wrapper takes the plain version below only for CPU tensors;
+for CUDA tensors it launches the kernel or raises.
 
-The window is staged in shared memory in column slices (see the .cu file):
-WINDOW_SMEM bounds a slice, so span * 4 bytes must fit it.
+The kernel reads the window's rows through L2 (see the .cu file): a
+persistent grid takes contiguous task ranges, a lane group reads a task's
+whole src row with streaming loads and its window row through L1.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
+from ._tensors import BLOCK, PLAIN_ELEMS, on_cuda, popcount32, workspace
 
 ROWS_PER_STEP = (1, 8)
-#: shared memory one block stages (two blocks share an SM at this size)
-WINDOW_SMEM = 96 * 1024
 
 
 def _check(src, table, starts, lidx, span, rows_per_step):
@@ -47,44 +50,44 @@ def _check(src, table, starts, lidx, span, rows_per_step):
         raise ValueError(f"a chunk's count may leave int32: cap={cap} w={w}")
 
 
-def slice_width(w: int, span: int) -> int:
-    """Columns of the window one block stages: all w when span * w int32 fit
-    WINDOW_SMEM, else the widest power of two (>= 4) dividing w that does."""
-    if w % 4:
-        raise ValueError(f"kernel reads 16-byte chunks: W={w} % 4 != 0")
-    if span * w * 4 <= WINDOW_SMEM:
-        return w
-    wb = 4
-    while w % (wb * 2) == 0 and span * wb * 2 * 4 <= WINDOW_SMEM:
-        wb *= 2
-    if span * wb * 4 > WINDOW_SMEM:
-        raise ValueError(f"a {span}-row window slice of {wb} columns exceeds "
-                         f"{WINDOW_SMEM} bytes of shared memory")
-    return wb
+def grid_blocks(n_tasks: int, w: int, wave: int) -> int:
+    """Blocks of a window_count launch over n_tasks tasks of w words: one
+    wave of the persistent grid, fewer when the tasks give fewer blocks a
+    pass of task rows each."""
+    return min(wave, max(1, n_tasks // (BLOCK // (w // 4))))
 
 
 def window_count(src: torch.Tensor, table: torch.Tensor, starts: torch.Tensor,
                  lidx: torch.Tensor, *, span: int,
                  rows_per_step: int) -> torch.Tensor:
-    """Per-chunk windowed AND + popcount, int32 [nck]; see module docstring."""
+    """Per-chunk windowed AND + popcount, int32 [nck] (kernels m3, m3b);
+    see module docstring."""
     _check(src, table, starts, lidx, span, rows_per_step)
     if not on_cuda("window_count", src, table, starts, lidx):
         return window_count_plain(src, table, starts, lidx, span=span)
     nck, cap, w = src.shape
-    wb = slice_width(w, span)
-    if src.data_ptr() % 16 or table.data_ptr() % 16:
-        raise ValueError("kernel reads 16-byte chunks: rows must be aligned")
-    if nck > 65535:
-        raise ValueError(f"nck={nck} exceeds the grid's y dimension")
-    out = torch.empty((nck, w // wb), dtype=torch.int64, device=src.device)
-    if nck == 0:
-        return out.sum(dim=1).to(torch.int32)
-    _build.check_launch(_build.kernels().gm_window_count(
+    if w % 4 or w // 4 > BLOCK:
+        raise ValueError(f"kernel reads rows of 16-byte chunks, at most "
+                         f"{BLOCK} of them: W={w}")
+    if src.data_ptr() % 16 or table.data_ptr() % 16 or lidx.data_ptr() % 4:
+        raise ValueError("window_count: rows must be 16-byte aligned")
+    if nck * cap >= 1 << 31:
+        raise ValueError(f"window_count: nck * cap = {nck * cap} tasks "
+                         f"exceed int32")
+    dev = src.device
+    if nck * cap == 0:
+        return torch.zeros(nck, dtype=torch.int32, device=dev)
+    stream = _build.stream(dev)
+    ws = workspace(dev, stream, 1 + nck)
+    out = torch.empty(nck, dtype=torch.int32, device=dev)
+    nb = grid_blocks(nck * cap, w, _build.wave_blocks(
+        "gm_window_count_blocks", dev.index, rows_per_step))
+    _build.check_launch(_build.entry("gm_window_count")(
         src.data_ptr(), table.data_ptr(), table.shape[0], starts.data_ptr(),
-        lidx.data_ptr(), nck, cap, w, span, wb, rows_per_step, out.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream), "window_count")
+        lidx.data_ptr(), nck, cap, w, span, rows_per_step, ws.data_ptr(),
+        out.data_ptr(), nb, stream), "window_count")
     window_count.launches[rows_per_step] += 1
-    return out.sum(dim=1).to(torch.int32)
+    return out
 
 
 #: launches by rows_per_step: 1 is kernel m3, 8 is kernel m3b

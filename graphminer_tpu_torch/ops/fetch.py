@@ -11,12 +11,15 @@ graphminer_tpu_torch/scripts/prof_breakdown.py). Here:
 
 Sums are taken in int64 and the result is returned as int32 like the JAX
 entry's, after a check that it fits (the TPU kernel's int32 sum wrapped
-silently). The check is torch._assert_async: it does not wait for the
-device, and a failure raises on the CPU or is a device-side assert on the
-card. An index outside [0, V) adds nothing. n_buf is the depth of the
-kernel's load pipeline, as it was the depth of the TPU kernel's DMA ring.
-The wrapper takes the plain version below only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+silently). A CUDA call is one launch and no other device work: the kernel
+sums, checks (a sum outside int32 is a device-side assert) and writes the
+int32 row itself, with its int64 sums and finish counter in a per-stream
+workspace that it leaves zero (_tensors.workspace). The plain version checks
+with torch._assert_async, which raises on the CPU. An index outside [0, V)
+adds nothing. n_buf is the depth of the kernel's load pipeline, as it was
+the depth of the TPU kernel's DMA ring. The wrapper takes the plain version
+below only for CPU tensors; for CUDA tensors it launches the kernel or
+raises.
 
 Left out: the enable_x64(False) scope (a Mosaic limit).
 """
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._tensors import BLOCK, PLAIN_ELEMS, n_blocks, on_cuda
+from ._tensors import BLOCK, PLAIN_ELEMS, on_cuda, workspace
 
 #: pipeline depths the kernel is built for
 N_BUF = (1, 2, 4, 8, 16, 32)
@@ -38,6 +41,19 @@ def _check(idx: torch.Tensor, table: torch.Tensor, n_buf: int) -> None:
                          f"{tuple(table.shape)}")
     if n_buf not in N_BUF:
         raise ValueError(f"n_buf={n_buf} not in {N_BUF}")
+
+
+def lanes_of(w: int):
+    """(vec, lanes): int32 a lane's load (4: 16-byte loads when W % 4 == 0,
+    else 1) and lanes a row."""
+    vec = 4 if w % 4 == 0 else 1
+    return vec, w // vec
+
+
+def grid_blocks(t: int, w: int, wave: int) -> int:
+    """Blocks of a launch over t indices: one wave of the persistent grid,
+    fewer when the indices give fewer blocks a row slot each."""
+    return min(wave, max(1, -(-t // (BLOCK // lanes_of(w)[1]))))
 
 
 def _to_int32(sums: torch.Tensor) -> torch.Tensor:
@@ -54,20 +70,27 @@ def fetch_rows_sum(idx: torch.Tensor, table: torch.Tensor,
     if not on_cuda("fetch_rows_sum", idx, table):
         return fetch_rows_sum_plain(idx, table)
     v, w = table.shape
-    chunks = w // 4 if w % 4 == 0 else w          # threads per row
-    if chunks > BLOCK:
+    dev = idx.device
+    if w == 0:
+        return torch.zeros((1, 0), dtype=torch.int32, device=dev)
+    vec, lanes = lanes_of(w)
+    if lanes > BLOCK:
         raise ValueError(f"kernel takes rows of at most {4 * BLOCK} int32 "
                          f"(or {BLOCK} when W % 4 != 0): W={w}")
-    if table.data_ptr() % 16:
+    tptr = table.data_ptr()
+    if tptr % 16:
         raise ValueError("kernel reads 16-byte chunks: table must be aligned")
     t = idx.shape[0]
-    nb = n_blocks(t * chunks)
-    out = torch.empty((nb, w), dtype=torch.int64, device=idx.device)
-    _build.check_launch(_build.kernels().gm_fetch_rows_sum(
-        idx.data_ptr(), t, table.data_ptr(), v, w, n_buf, out.data_ptr(), nb,
-        torch.cuda.current_stream(idx.device).cuda_stream), "fetch_rows_sum")
+    stream = _build.stream(dev)
+    nb = grid_blocks(t, w, _build.wave_blocks(
+        "gm_fetch_rows_sum_blocks", dev.index, vec, n_buf))
+    ws = workspace(dev, stream, 1 + w)
+    out = torch.empty((1, w), dtype=torch.int32, device=dev)
+    _build.check_launch(_build.entry("gm_fetch_rows_sum")(
+        idx.data_ptr(), t, tptr, v, w, n_buf, ws.data_ptr(), out.data_ptr(),
+        nb, stream), "fetch_rows_sum")
     fetch_rows_sum.launches += 1
-    return _to_int32(out.sum(dim=0))
+    return out
 
 
 fetch_rows_sum.launches = 0

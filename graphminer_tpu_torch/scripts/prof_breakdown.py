@@ -11,8 +11,10 @@ n_buf = 16. Each D result is held against the plain version, exactly.
 
     python -m graphminer_tpu_torch.scripts.prof_breakdown [--device cuda|cpu]
 
-Times are medians of CUDA-event timings after warm-up, each printed with
-the least time an H100 could take for the same work. The table values
+Times are medians of CUDA-event timings after warm-up (the host's dispatch
+of a call included), each printed with the least time an H100 could take
+for the same work; each D shape also with its device time alone
+(torch.profiler) and the rate on the n·4W gathered bytes. The table values
 (0..99) and indices come from torch generators seeded 0 and 1, 2, ...
 Left out: the jnp.roll variants (they defeated a TPU runtime's
 memoization) and the try/except around the Pallas fetch: a failing kernel
@@ -30,7 +32,7 @@ from ..types import SENTINEL
 from ..io.synth import rmat
 from ..ops import hubcore
 from ..ops.fetch import fetch_rows_sum, fetch_rows_sum_plain
-from ..utils.profiling import bound_ms, time_ms
+from ..utils.profiling import bound_ms, device_ms, time_ms
 
 SCALE = 18
 FETCH_ROWS = 1 << 18
@@ -151,13 +153,26 @@ def main(argv=None) -> dict:
             want = fetch_rows_sum_plain(idx, tbl)
             if not torch.equal(got, want):
                 raise RuntimeError(f"fetch w={w} n={n}: kernel != plain")
-            ms, _ = time_ms(lambda: fetch_rows_sum(idx, tbl, n_buf=N_BUF),
-                            dev, REPS)
+            call = lambda: fetch_rows_sum(idx, tbl, n_buf=N_BUF)
+            ms, _ = time_ms(call, dev, REPS)
             b_ms, _ = fetch_bound(idx, w)
-            res["fetch"].append({"w": w, "n": n, "ms": ms, "bound_ms": b_ms})
+            gathered = n * w * 4                    # bytes of the n rows
+            row = {"w": w, "n": n, "ms": ms, "bound_ms": b_ms,
+                   "bytes": gathered, "device_ms": None, "ops": None}
+            alone = "device alone not measured"
+            if dev.type == "cuda":
+                row["device_ms"], row["ops"] = device_ms(call)
+                alone = (f"device alone {row['device_ms']:.4f} ms "
+                         f"{gathered / row['device_ms'] / 1e6:8.2f} GB/s")
+            res["fetch"].append(row)
             print(f"fetch w={w:4d} n={n:7d}: {ms:8.3f} ms "
-                  f"{ms / n * 1e6:7.2f} ns/row {n * w * 4 / ms / 1e6:8.2f} "
-                  f"GB/s (H100 bound {b_ms:.4f} ms)", flush=True)
+                  f"{ms / n * 1e6:7.2f} ns/row {gathered / ms / 1e6:8.2f} "
+                  f"GB/s; {alone} (H100 bound {b_ms:.4f} ms)", flush=True)
+    tot = {k: sum(r[k] for r in res["fetch"]) for k in ("ms", "bound_ms")}
+    if dev.type == "cuda":
+        tot["device_ms"] = sum(r["device_ms"] for r in res["fetch"])
+    print(f"fetch, {len(res['fetch'])} shapes: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
     return res
 
 

@@ -5,9 +5,11 @@ The counterpart of graphminer_tpu/utils/profiling.py. Parity: include/timer.h
 and the per-set-op counters (common.h:72-74). A phase that runs on a CUDA
 device is timed with torch.cuda.Event pairs on the current stream, so it
 measures device time and not the host's enqueue; a CPU phase uses the host
-clock. time_ms times a repeated call the same way, and bound_ms gives the
-least time an H100 SXM could take for a given work. Left out: xla_trace
-(torch.profiler is the tool on the card).
+clock. time_ms times a repeated call the same way (on the card the event
+pair also spans the host's dispatch of the call), device_ms gives the
+device time alone and the device operations a call runs (torch.profiler),
+and bound_ms gives the least time an H100 SXM could take for a given work.
+Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import contextlib
 import json
 import statistics
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Dict, Optional
 
 import torch
@@ -128,3 +130,31 @@ def time_ms(fn, device, reps: int = 11):
             fn()
             ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts), val
+
+
+def device_ms(fn, calls: int = 200):
+    """(ms, ops) of fn() on the card: the device time of one call in ms —
+    the device events torch.profiler records over `calls` calls after ten
+    warm-up calls, summed, over the calls they cover — and {event name:
+    events per call} of those events (kernels, memsets, copies). The
+    profiler can miss an event at the edge of its window; when even the
+    most frequent event came fewer than `calls` times, the sum is taken
+    over that many calls. Raises when the profiler recorded no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device event")
+    us = sum(e.time_range.elapsed_us() for e in dev)
+    counts = Counter(e.name for e in dev)
+    covered = min(calls, max(counts.values()))
+    return us / covered / 1e3, {k: n / calls for k, n in counts.items()}

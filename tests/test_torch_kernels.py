@@ -192,7 +192,7 @@ def test_ring_tail_pairs(dev, wa, wb):
 
 
 @pytest.mark.parametrize("w", [8, 6, 128, 256])
-@pytest.mark.parametrize("n_buf", [1, 16])
+@pytest.mark.parametrize("n_buf", fetch.N_BUF)
 def test_fetch_rows_sum(dev, w, n_buf):
     rng = np.random.default_rng(w * n_buf)
     table = rng.integers(-1000, 1000, (3000, w)).astype(np.int32)
@@ -202,6 +202,66 @@ def test_fetch_rows_sum(dev, w, n_buf):
     got = fetch.fetch_rows_sum(idx, table, n_buf)
     assert fetch.fetch_rows_sum.launches == before + 1
     assert torch.equal(got, fetch.fetch_rows_sum_plain(idx, table))
+
+
+@pytest.mark.parametrize("w,t", [(1024, 5000), (3, 1), (8, 0), (36, 70000)])
+def test_fetch_rows_sum_edges(dev, w, t):
+    """The widest rows a block takes, 4-byte lanes, an empty and a one-row
+    index list; and the workspace is left zero for the next call."""
+    rng = np.random.default_rng(w + t)
+    table = torch.from_numpy(rng.integers(-9, 9, (700, w)).astype(np.int32)
+                             ).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 700, t).astype(np.int32)).to(dev)
+    for _ in range(2):
+        assert torch.equal(fetch.fetch_rows_sum(idx, table, 4),
+                           fetch.fetch_rows_sum_plain(idx, table))
+
+
+def _device_ops(fn):
+    """{device op name: events a call} of fn over 40 calls
+    (torch.profiler, which can miss an event at the edge of its window,
+    so a count a call may read a little under its true value)."""
+    from graphminer_tpu_torch.utils.profiling import device_ms
+    return device_ms(fn, calls=40)[1]
+
+
+def test_fetch_rows_sum_is_one_kernel(dev):
+    """A D call runs its kernel and no other device op (a memset at most);
+    that it launches once a call, the launch counter shows."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.integers(0, 99, (4096, 32)).astype(np.int32)
+                             ).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 4096, 9000).astype(np.int32)
+                           ).to(dev)
+    before = fetch.fetch_rows_sum.launches
+    ops = _device_ops(lambda: fetch.fetch_rows_sum(idx, table, 16))
+    assert fetch.fetch_rows_sum.launches == before + 50
+    kernels = {k: v for k, v in ops.items() if "emset" not in k}
+    assert len(kernels) == 1 and 0.9 <= next(iter(kernels.values())) <= 1.0
+    assert "fetch_rows_sum_kernel" in next(iter(kernels)), ops
+    assert sum(v for k, v in ops.items() if "emset" in k) <= 1.0, ops
+
+
+def test_fetch_rows_sum_overflow_raises(dev):
+    """A column sum outside int32 is a device-side assert, as
+    torch._assert_async raises one; it poisons the CUDA context, so it runs
+    in a process of its own."""
+    import os
+    import subprocess
+    import sys
+    code = ("import torch\n"
+            "from graphminer_tpu_torch.ops import fetch\n"
+            "t = torch.full((2, 4), 1 << 30, dtype=torch.int32, "
+            "device='cuda')\n"
+            "i = torch.tensor([0, 1, 0], dtype=torch.int32, device='cuda')\n"
+            "fetch.fetch_rows_sum(i, t)\n"
+            "torch.cuda.synchronize()\n"
+            "print('no error')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=300,
+                       capture_output=True, text=True)
+    assert r.returncode != 0 and "no error" not in r.stdout
+    assert "device-side assert" in r.stderr, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("nw,wt,wa,wb", [(128, 48, 64, 16), (128, 48, 16, 16),
@@ -228,10 +288,62 @@ def test_window_count(dev, rows_per_step, w, span):
         words(rng, nck * cap, w).reshape(nck, cap, w), words(rng, nd, w),
         rng.integers(-50, nd + 50, nck).astype(np.int32),
         rng.integers(-2, span + 2, (nck, cap)).astype(np.int32))]
+    before = cuda_window.window_count.launches[rows_per_step]
     assert torch.equal(
         cuda_window.window_count(*args, span=span,
                                  rows_per_step=rows_per_step),
         cuda_window.window_count_plain(*args, span=span))
+    assert cuda_window.window_count.launches[rows_per_step] == before + 1
+
+
+#: (nck, cap, span, w, nd): chunk counts that are no multiple of the wave
+#: (one chunk; more chunks than blocks), cap no multiple of a pass of task
+#: rows, a narrow window (W = 8), and W = 12 (3 chunks a row)
+WINDOW_EDGES = [(1, 8192, 1024, 128, 57344), (300, 520, 300, 8, 1000),
+                (7, 1000, 1000, 128, 1500), (5, 77, 10, 12, 40),
+                (133, 64, 512, 32, 600)]
+
+
+@pytest.mark.parametrize("rows_per_step", [1, 8])
+@pytest.mark.parametrize("nck,cap,span,w,nd", WINDOW_EDGES)
+def test_window_count_edges(dev, rows_per_step, nck, cap, span, w, nd):
+    rng = np.random.default_rng(nck + cap + w)
+    lidx = np.sort(rng.integers(-3, span + 3, (nck, cap)), axis=1)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        words(rng, nck * cap, w).reshape(nck, cap, w), words(rng, nd, w),
+        rng.integers(-50, nd + 50, nck).astype(np.int32),
+        lidx.astype(np.int32))]
+    want = cuda_window.window_count_plain(*args, span=span)
+    for _ in range(2):                       # the workspace is left zero
+        assert torch.equal(cuda_window.window_count(
+            *args, span=span, rows_per_step=rows_per_step), want)
+
+
+@pytest.mark.parametrize("nck,cap", [(0, 64), (4, 0)])
+def test_window_count_no_tasks(dev, nck, cap):
+    """No tasks: zeros, one a chunk, and no launch."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    before = dict(cuda_window.window_count.launches)
+    got = cuda_window.window_count(z(nck, cap, 8), z(16, 8), z(nck),
+                                   z(nck, cap), span=4, rows_per_step=1)
+    assert got.tolist() == [0] * nck
+    assert cuda_window.window_count.launches == before
+
+
+def test_window_count_is_one_kernel(dev):
+    """A window_count call runs its kernel and no other device op; that it
+    launches once a call, test_window_count shows."""
+    rng = np.random.default_rng(6)
+    nck, cap, span, w, nd = 20, 2048, 1024, 128, 8000
+    args = [torch.from_numpy(x).to(dev) for x in (
+        words(rng, nck * cap, w).reshape(nck, cap, w), words(rng, nd, w),
+        rng.integers(0, nd, nck).astype(np.int32),
+        rng.integers(0, span, (nck, cap)).astype(np.int32))]
+    for r in cuda_window.ROWS_PER_STEP:
+        ops = _device_ops(lambda: cuda_window.window_count(
+            *args, span=span, rows_per_step=r))
+        assert len(ops) == 1 and "window_count_kernel" in next(iter(ops)), ops
+        assert 0.9 <= next(iter(ops.values())) <= 1.0, ops
 
 
 def test_times_two(dev):

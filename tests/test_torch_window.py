@@ -145,13 +145,6 @@ def test_out_of_range_start_and_index():
     assert got.tolist() == want
 
 
-@pytest.mark.parametrize("w,span,wb", [(8, 1024, 8), (128, 1024, 16),
-                                       (128, 256, 64), (16, 4096, 4)])
-def test_slice_width(w, span, wb):
-    assert cuda_window.slice_width(w, span) == wb
-    assert span * wb * 4 <= cuda_window.WINDOW_SMEM
-
-
 def test_window_rejects_bad_args():
     src = torch.zeros((2, 4, 8), dtype=torch.int32)
     table = torch.zeros((16, 8), dtype=torch.int32)
@@ -161,3 +154,134 @@ def test_window_rejects_bad_args():
         cuda_window.window_count(src, table, st, li, span=4, rows_per_step=2)
     with pytest.raises(ValueError, match="span"):
         cuda_window.window_count(src, table, st, li, span=17, rows_per_step=1)
+
+
+def emulate_kernel(src, table, starts, lidx, span, rows_per_step, wave):
+    """Kernels m3 and m3b (csrc/window_count.cu::window_count_kernel, the
+    window read through L2) in numpy: the launch's grid
+    (cuda_window.grid_blocks over one wave of `wave` blocks), block b
+    taking tasks [n*b/nb, n*(b+1)/nb) of the n = nck * cap tasks, chunk by
+    chunk; in each chunk, thread slot s of the per_pass = BLOCK / (w / 4)
+    lane groups takes tasks t_lo + s, stepping per_pass * ROWS, ROWS of them
+    per_pass apart a step, none past t_hi. Checks that every task is counted
+    exactly once; int64 sums per chunk, int32 at the end (the last block's
+    finish)."""
+    nck, cap, w = src.shape
+    nd = table.shape[0]
+    n = nck * cap
+    nb = cuda_window.grid_blocks(n, w, wave)
+    per_pass = cuda_window.BLOCK // (w // 4)
+    sums = np.zeros(nck, np.int64)
+    covered = np.zeros(n, np.int64)
+    for b in range(nb):
+        lo, hi = n * b // nb, n * (b + 1) // nb
+        c = lo // cap
+        while c < nck and c * cap < hi:
+            t_lo, t_hi = max(lo - c * cap, 0), min(hi - c * cap, cap)
+            taken = [t0 + j * per_pass
+                     for s in range(per_pass)
+                     for t0 in range(t_lo + s, t_hi, per_pass * rows_per_step)
+                     for j in range(rows_per_step)
+                     if t0 + j * per_pass < t_hi]
+            t = np.array(taken, np.int64)
+            np.add.at(covered, c * cap + t, 1)
+            st = min(max(int(starts[c]), 0), nd - span)
+            li = lidx[c, t]
+            ok = (li >= 0) & (li < span)
+            rows = table[st + np.where(ok, li, 0)]
+            pc = np.bitwise_count(src[c, t].view(np.uint32)
+                                  & rows.view(np.uint32)).sum(axis=1)
+            sums[c] += int((pc * ok).sum())
+            c += 1
+    assert (covered == 1).all()
+    assert (sums < 1 << 31).all()
+    return sums.astype(np.int32)
+
+
+@pytest.mark.parametrize("w", [8, 128])
+@pytest.mark.parametrize("rows_per_step", [1, 8])
+def test_emulated_kernels_match_jax_m3_and_m1(interpret, w, rows_per_step):
+    """m3/m3b's kernel, emulated, against the JAX m3 (Pallas, interpret
+    mode) and m1: the script's 8 chunks over grids of 3 and 5 blocks (no
+    multiple of the wave, so blocks start and end inside chunks) and over
+    a full H100 wave."""
+    jm = jax_script(w)
+    args = (jm.src_stream, jm.starts, jm.lidx)
+    want_m1 = jcall(jm.m1, *args)
+    want_m3 = jcall(jm.m3(jm.nchunks), *args)
+    assert np.array_equal(want_m1, want_m3)
+    src, table, starts, lidx = (a.numpy() for a in port_inputs(w))
+    for wave in (3, 5, 1056):
+        assert np.array_equal(emulate_kernel(src, table, starts, lidx,
+                                             ARGS[2], rows_per_step, wave),
+                              want_m3)
+
+
+#: (nck, cap, span, w, nd, wave): chunks no multiple of the wave, cap no
+#: multiple of a pass of task rows, W = 12 (3 chunks a row), a window as
+#: wide as the table, one chunk's tasks over several blocks
+RAGGED = [(7, 1000, 300, 8, 700, 3), (5, 77, 10, 12, 40, 2),
+          (3, 600, 1000, 128, 1500, 5), (11, 130, 512, 32, 600, 4),
+          (2, 2100, 4096, 16, 5000, 3), (1, 900, 64, 128, 64, 7)]
+
+
+@pytest.mark.parametrize("nck,cap,span,w,nd,wave", RAGGED)
+@pytest.mark.parametrize("rows_per_step", [1, 8])
+def test_emulated_kernels_ragged(nck, cap, span, w, nd, wave, rows_per_step):
+    """Starts outside [0, nd - span] and local indices outside [0, span),
+    against the plain version; and against JAX m1 with the indices clipped
+    into the window and the starts to >= 0 (its dynamic_slice clamps a start
+    past nd - span as the kernel does, but counts a negative one from the
+    end, where the kernel, like the Pallas m3's DMA, starts at 0)."""
+    rng = np.random.default_rng(nck * cap + w)
+    table = rng.integers(0, 1 << 32, size=(nd, w), dtype=np.uint64
+                         ).astype(np.uint32).view(np.int32)
+    src = rng.integers(0, 1 << 32, size=(nck, cap, w), dtype=np.uint64
+                       ).astype(np.uint32).view(np.int32)
+    starts = rng.integers(-span, nd + span, size=nck).astype(np.int32)
+    lidx = np.sort(rng.integers(-3, span + 3, size=(nck, cap)), axis=1
+                   ).astype(np.int32)
+    want = cuda_window.window_count_plain(
+        *(torch.from_numpy(a) for a in (src, table, starts, lidx)),
+        span=span).numpy()
+    assert np.array_equal(emulate_kernel(src, table, starts, lidx, span,
+                                         rows_per_step, wave), want)
+    inside, ahead = np.clip(lidx, 0, span - 1), np.maximum(starts, 0)
+    got = emulate_kernel(src, table, ahead, inside, span, rows_per_step,
+                         wave)
+    assert np.array_equal(got, _jax_m1(src, table, ahead, inside, span))
+
+
+@pytest.mark.parametrize("n_tasks,w,wave,want", [
+    (802_816, 128, 1056, 1056), (4096, 128, 1056, 512), (40, 8, 1056, 1),
+    (5 * 77, 12, 2, 2), (0, 32, 1056, 1)])
+def test_grid_blocks(n_tasks, w, wave, want):
+    """One wave at most, and no more blocks than passes of task rows (a pass
+    is BLOCK / (w / 4) tasks side by side), at least one."""
+    assert cuda_window.grid_blocks(n_tasks, w, wave) == want
+
+
+@pytest.mark.parametrize("nck,cap", [(0, 5), (3, 0)])
+def test_window_no_tasks(nck, cap):
+    """No chunks, or chunks of no tasks: zeros, one a chunk."""
+    got = cuda_window.window_count(
+        torch.zeros((nck, cap, 8), dtype=torch.int32),
+        torch.zeros((16, 8), dtype=torch.int32),
+        torch.zeros(nck, dtype=torch.int32),
+        torch.zeros((nck, cap), dtype=torch.int32), span=4, rows_per_step=1)
+    assert got.dtype == torch.int32 and got.tolist() == [0] * nck
+
+
+def _jax_m1(src, table, starts, lidx, span):
+    """The JAX script's m1 (dynamic_slice window, row take, popcount) at
+    these shapes, written out with jax.numpy as the script writes it."""
+    import jax.numpy as jnp
+
+    def one(s, st, li):
+        win = jax.lax.dynamic_slice(jnp.asarray(table), (st, 0),
+                                    (span, table.shape[1]))
+        return jnp.sum(jax.lax.population_count(s & win[li]),
+                       dtype=jnp.int32)
+    with jax.enable_x64(False):
+        return np.asarray(jax.lax.map(lambda xs: one(*xs), (
+            jnp.asarray(src), jnp.asarray(starts), jnp.asarray(lidx))))
