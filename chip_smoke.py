@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's paths — exact triangle counting on RMAT scale 18, edge
-factor 16, seed 7 (82,947,332 triangles) through the stream, ring and
-hub-core engines, and the three probe scripts — and fails (non-zero exit,
-no result line) when any phase fails:
+factor 16, seed 7 (82,947,332 triangles) through the stream, ring,
+hub-core and hybrid engines and the generic set-operation path, the
+three probe scripts, and the generic clique and SgL counts — and fails
+(non-zero exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
@@ -36,13 +37,28 @@ no result line) when any phase fails:
      m3b, and of R and torch.mul,
      failing unless a D call and a window_count call each run one kernel
      and no other device op; and R's host time a call, split into the
-     parts of its wrapper's path (host clock over 10,000 calls).
+     parts of its wrapper's path (host clock over 10,000 calls);
+  8. runs the hybrid engine (ring phase C + sub-core stream) on rmat18:
+     count, one launch each of B and A and none of C or E, the coverage
+     of the DAG edges, layout bytes, device count time and busy share;
+  9. runs `python -m graphminer_tpu_torch` without --fast and without
+     --cpu: tc on rmat18, clique 4 and 5 on rmat14 (36,628,817 and
+     387,027,732), sgl diamond and rectangle on rmat12 (57,515,371 and
+     52,988,519), each against its golden, with its run_s;
+ 10. holds the frontier's map engine against its compact engine on the
+     card at rmat10, cliques k = 3-5 and the four SGL plans;
+ 11. holds every set operation, both backends, on the card against the
+     CPU on random rows of widths 8-4096;
+ 12. sizes the hybrid's sub-core stream at rmat20 (build_stream
+     plan_only), builds the engine and checks its count (423,537,282),
+     the estimate against the built bytes, its launches, the peak device
+     memory and the device count time.
 
-Each path of phases 2 and 4-6 runs with every launch count set to 0 just
-before it, and its counts are read just after. The line before the last is
-the card's name and power limit; the last line is {"ok": true, "device":
-{...}}. The rmat18 graph is written under the git-ignored graph_cache/
-directory.
+Each path of phases 2, 4-6, 8 and 12 runs with every launch count set to
+0 just before it, and its counts are read just after. The line before the
+last is the card's name and power limit; the last line is {"ok": true,
+"device": {...}}. The rmat12, rmat14, rmat18 and rmat20 graphs are written
+under the git-ignored graph_cache/ directory.
 """
 import json
 import os
@@ -56,7 +72,8 @@ import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = {14: 2_860_691, 18: 82_947_332}     # rmat(scale, 16, seed=7)
+GOLDEN = {14: 2_860_691, 18: 82_947_332,     # rmat(scale, 16, seed=7)
+          20: 423_537_282}
 PREFIX = os.path.join(REPO, "graph_cache", "rmat18_ef16_seed7", "graph")
 REPS = 11
 SENTINEL = 0x7FFFFFFF
@@ -814,22 +831,49 @@ def busy_share(label, eng, kernels, counts=5):
         f"count: " + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
 
+#: readings device_ms takes of a kernel whose profiler events fall short
+DEVICE_READS = 3
+
+
 def device_ms(fn, kernel=None, calls=200):
     """The device time of one fn() call in ms (torch.profiler over `calls`
     calls after warm-up). With `kernel` (the name of a __global__ function),
     fails unless that kernel is the one device op the calls run, besides a
-    memset a call at most, and it ran at most once a call (the profiler can
-    miss an event at the edge of its window: at least 0.9 a call)."""
+    memset a call at most, and it ran at most once a call; and unless the
+    wrappers' launch counts rose by exactly one for each fn() call, so a
+    call that launched nothing fails. The profiler can miss events at the
+    edge of its window: a reading with fewer than 0.9 kernel events a call
+    is taken again, DEVICE_READS readings in all."""
     from graphminer_tpu_torch.utils.profiling import device_ms as alone
-    ms, ops = alone(fn, calls)
-    if kernel is not None:
+    if kernel is None:
+        return alone(fn, calls)[0]
+    n_calls = [0]
+
+    def counted():
+        n_calls[0] += 1
+        fn()
+
+    for _ in range(DEVICE_READS):
+        before = sum(read_counts().values())
+        n_calls[0] = 0
+        ms, ops = alone(counted, calls)
+        launched = sum(read_counts().values()) - before
+        check(launched == n_calls[0],
+              f"{kernel}: {launched} launches counted over {n_calls[0]} "
+              "calls")
         kernels = {k: v for k, v in ops.items() if "emset" not in k}
         memsets = sum(v for k, v in ops.items() if "emset" in k)
+        rate = next(iter(kernels.values()), 0.0)
         check(len(kernels) == 1 and kernel in next(iter(kernels))
-              and 0.9 <= next(iter(kernels.values())) <= 1.0
-              and memsets <= 1.0,
+              and rate <= 1.0 and memsets <= 1.0,
               f"a call of {kernel} ran other device work: {ops}")
-    return ms
+        if rate >= 0.9:
+            return ms
+        say(f"torch.profiler recorded {rate} {kernel} events a call "
+            "(fewer than 0.9) while the wrapper counted one launch a call:"
+            " reading again")
+    check(False, f"torch.profiler recorded {rate} {kernel} events a call "
+          f"in each of {DEVICE_READS} readings")
 
 
 def r_host_split(calls=10_000):
@@ -1071,6 +1115,229 @@ def timing_slice(hub_eng, pb, pw):
     return res
 
 
+# --------------------------------------------------------------------------
+# phases 8-12: the hybrid tier and the generic set-operation path
+# --------------------------------------------------------------------------
+
+def graph_prefix(scale):
+    return os.path.join(REPO, "graph_cache", f"rmat{scale}_ef16_seed7",
+                        "graph")
+
+
+def write_rmat(scale):
+    """rmat(scale, 16, seed=7), written under graph_cache/ as write_rmat18
+    writes rmat18."""
+    from graphminer_tpu_torch.io.loader import save_graph
+    from graphminer_tpu_torch.io.synth import rmat
+    t0 = time.perf_counter()
+    g = rmat(scale, 16, seed=7)
+    save_graph(g, graph_prefix(scale))
+    say(f"rmat{scale}: V={g.n_vertices} E={g.n_edges} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return g
+
+
+def hybrid_launch_check(label, eng):
+    """One count of a HybridEngine with every count at 0 before it: it must
+    launch B and A once each and C and E never. Returns the count."""
+    total, launches = run_path(label, eng.count,
+                               ["ring_phase_c", "stream_bucket_count"])
+    counts = read_counts()
+    want = {"ring_phase_c": 1, "stream_bucket_count": 1,
+            "ring_tail_pairs": 0, "hub_tail_count": 0}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{label}: launches {got}, want {want}")
+    check(eng.ring.n_core_tasks + eng.stream.n_tasks == eng.n_edges,
+          f"{label}: core {eng.ring.n_core_tasks} + sub-core "
+          f"{eng.stream.n_tasks} != {eng.n_edges} tasks")
+    # each kernel against its plain version on this path's own plans, after
+    # the counts were read (these launches are not the path's)
+    from graphminer_tpu_torch.ops import cuda_ring, cuda_stream
+    compare("ring_phase_c",
+            cuda_ring.ring_phase_c_all(eng.phase_c_plan).sum(),
+            cuda_ring.ring_phase_c_all_plain(eng.phase_c_plan).sum(),
+            f"{label}, {len(eng.ring.cbuckets)} phase-C buckets")
+    compare("stream_bucket_count",
+            cuda_stream.stream_count_all(eng.stream_plan).sum(),
+            cuda_stream.stream_count_all_plain(eng.stream_plan).sum(),
+            f"{label}, {len(eng.stream.buckets)} sub-core buckets")
+    say(f"{label}: B and A == plain on the hybrid's plans "
+        f"({len(eng.ring.cbuckets)} B buckets, {len(eng.stream.buckets)} A "
+        f"buckets)")
+    return total, launches
+
+
+def run_hybrid18(g):
+    """Phase 8: the hybrid tier at rmat18 — count, launches, coverage,
+    layout bytes, device count time, busy share."""
+    from graphminer_tpu_torch.ops.hybrid import HybridEngine
+    t0 = time.perf_counter()
+    eng = HybridEngine(g, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    total, launches = hybrid_launch_check("HybridEngine rmat18 count", eng)
+    check(total == GOLDEN[18], f"hybrid count {total} != {GOLDEN[18]}")
+    e_ms, tot = time_ms(lambda: eng.partials().sum())
+    check(int(tot) == GOLDEN[18], f"hybrid partials {int(tot)}")
+    say(f"[{CARD}] HybridEngine rmat18: count={total} build_s={t_build:.2f}"
+        f" layout {eng.nbytes()} B (ring {eng.ring.nbytes()} + sub-core "
+        f"stream {eng.stream.nbytes()}); {len(eng.ring.cbuckets)} B buckets "
+        f"({eng.ring.n_core_tasks} core tasks), {len(eng.stream.buckets)} A "
+        f"buckets ({eng.stream.n_tasks} sub-core tasks); device count "
+        f"{e_ms:.4f} ms (median of {REPS}), "
+        f"{eng.n_edges / (e_ms / 1e3):.4e} edge tasks/s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    busy_share("hybrid", eng, {"B": "ring_phase_c_kernel",
+                               "A": "stream_count_kernel"})
+    return launches
+
+
+def run_hybrid20():
+    """Phase 12: the hybrid tier at rmat20 — the sub-core stream's exact
+    size first (build_stream(plan_only=True)), then the build, the count,
+    the peak device memory and the device count time."""
+    from graphminer_tpu_torch.ops.hybrid import HybridEngine
+    from graphminer_tpu_torch.ops.ring import CORE
+    from graphminer_tpu_torch.ops.stream import build_stream
+    t0 = time.perf_counter()
+    g = write_rmat(20)
+    t1 = time.perf_counter()
+    rg = g.relabel_by_degree(descending=False).orientation()
+    est = build_stream(rg, core=CORE, dst_below=rg.n_vertices - CORE,
+                       plan_only=True)
+    whole = build_stream(rg, core=CORE, plan_only=True)
+    say(f"rmat20: DAG max degree {rg.max_degree}, {rg.n_edges} DAG edges; "
+        f"sub-core stream estimate {est} B, whole stream layout {whole} B "
+        f"({time.perf_counter() - t1:.1f} s)")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    eng = HybridEngine(rg, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t1
+    check(eng.stream.nbytes() == est,
+          f"rmat20 sub-core stream {eng.stream.nbytes()} B != estimate {est}")
+    total, _ = hybrid_launch_check("HybridEngine rmat20 count", eng)
+    check(total == GOLDEN[20], f"rmat20 hybrid count {total} != "
+          f"{GOLDEN[20]}")
+    e_ms, _ = time_ms(lambda: eng.partials().sum())
+    say(f"[{CARD}] HybridEngine rmat20: count={total} build_s={t_build:.2f}"
+        f" layout {eng.nbytes()} B (sub-core stream {eng.stream.nbytes()})"
+        f"; max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"device count {e_ms:.4f} ms, "
+        f"{eng.n_edges / (e_ms / 1e3):.4e} edge tasks/s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+#: the generic CLI runs of phase 9: (scale, verb arguments, golden)
+GENERIC_CLI = ((18, ("tc",), GOLDEN[18]),
+               (14, ("clique", "4"), 36_628_817),
+               (14, ("clique", "5"), 387_027_732),
+               (12, ("sgl", "diamond"), 57_515_371),
+               (12, ("sgl", "rectangle"), 52_988_519))
+
+
+def run_generic_cli():
+    """Phase 9: `python -m graphminer_tpu_torch <verb>` on CUDA, without
+    --fast and without --cpu: the generic set-operation path (setops,
+    DeviceGraph, the frontier engine). It launches no kernel of ours."""
+    t0 = time.perf_counter()
+    for scale in sorted({s for s, _, _ in GENERIC_CLI} - {18}):
+        write_rmat(scale)
+    out = {}
+    for scale, args, want in GENERIC_CLI:
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "graphminer_tpu_torch",
+                            args[0], graph_prefix(scale), *args[1:],
+                            "--json", "--profile"], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+        sys.stderr.write(r.stderr)
+        check(r.returncode == 0, f"CLI {args} exited {r.returncode}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        prof = res["profile"]
+        say(f"[{CARD}] CLI {' '.join(args)} rmat{scale} (generic, cuda): "
+            f"total={res['total']} run_s={res['run_s']} "
+            f"load_s={res['load_s']} device_count_s="
+            f"{prof['phases_s'].get('device_count')} device={prof['device']}"
+            f" launches={prof['kernel_launches']} "
+            f"(wall {time.perf_counter() - t1:.1f} s)")
+        check(prof["device"] == "cuda", f"CLI {args} ran on {prof['device']}")
+        check(res["total"] == want, f"CLI {args} rmat{scale} total "
+              f"{res['total']} != {want}")
+        out[" ".join(args)] = res["run_s"]
+    say(f"generic CLI phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_map_vs_compact():
+    """Phase 10: the frontier's map engine against its compact engine on the
+    card at rmat10, cliques k = 3-5 and the four SGL plans."""
+    from graphminer_tpu_torch.core.plan import SGL_PLANS, clique_plan
+    from graphminer_tpu_torch.engine.frontier import count_pattern
+    from graphminer_tpu_torch.io.synth import rmat
+    t0 = time.perf_counter()
+    g = rmat(10, 16, seed=7)
+    plans = [clique_plan(k) for k in (3, 4, 5)] + [
+        SGL_PLANS[n] for n in ("diamond", "rectangle", "house", "pentagon")]
+    for p in plans:
+        t1 = time.perf_counter()
+        c = count_pattern(g, p, engine="compact", chunk=16384, device="cuda")
+        t2 = time.perf_counter()
+        m = count_pattern(g, p, engine="map", chunk=64, device="cuda")
+        say(f"rmat10 {p.name}: compact {c} ({t2 - t1:.2f} s), map {m} "
+            f"({time.perf_counter() - t2:.2f} s)")
+        check(c == m and c > 0, f"rmat10 {p.name}: map {m} != compact {c}")
+    say(f"map == compact phase: {time.perf_counter() - t0:.1f} s")
+
+
+def run_setops_card_vs_cpu():
+    """Phase 11: every set operation, both backends, on the card against
+    the CPU, on random rows of widths 8-4096 (empty, full, SENTINEL and
+    bounded rows among them)."""
+    from graphminer_tpu_torch.ops import setops
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    n_cases = 0
+    for w in (8, 16, 100, 128, 1000, 4096):
+        b_rows = 257 if w <= 128 else 33      # bc on the CPU: rows*w*w
+        a = rng.integers(0, 3 * w, (b_rows, w)).astype(np.int32)
+        a[rng.random((b_rows, w)) < 0.2] = SENTINEL
+        b = np.sort(rng.integers(0, 3 * w, (b_rows, w)), axis=1
+                    ).astype(np.int32)
+        b[rng.random((b_rows, w)) < 0.3] = SENTINEL
+        b = np.sort(b, axis=1)                 # SENTINEL tails
+        b[0], a[1] = SENTINEL, SENTINEL
+        b[2] = np.arange(w)
+        upper = rng.integers(0, 3 * w, b_rows).astype(np.int32)
+        anc = a[:, :3].copy()
+        x = b[:, 0].copy()
+        cpu = [torch.from_numpy(t) for t in (a, b, upper, anc, x)]
+        card = [t.cuda() for t in cpu]
+        for backend in ("bc", "bs"):
+            for args, ops in (((0, 1), ("member", "intersect_count",
+                                        "intersect", "difference_count",
+                                        "difference")),
+                              ((0, 1, 2), ("intersect_count", "intersect",
+                                           "difference_count",
+                                           "difference")),
+                              ((4, 1), ("connected",))):
+                for op in ops:
+                    fn = getattr(setops, op)
+                    got = fn(*(card[i] for i in args), backend=backend)
+                    want = fn(*(cpu[i] for i in args), backend=backend)
+                    check(torch.equal(got.cpu(), want),
+                          f"setops.{op} {backend} w={w}: card != CPU")
+                    n_cases += 1
+        for op, args in (("bounded", (0, 2)), ("exclude", (0, 3)),
+                         ("count_valid", (0,)), ("count_valid", (0, 2))):
+            fn = getattr(setops, op)
+            check(torch.equal(fn(*(card[i] for i in args)).cpu(),
+                              fn(*(cpu[i] for i in args))),
+                  f"setops.{op} w={w}: card != CPU")
+            n_cases += 1
+    say(f"setops card == CPU: {n_cases} cases, widths 8-4096 "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main():
     check_environment()
     build_kernels()
@@ -1097,6 +1364,15 @@ def main():
     res = timing(stream_eng, ring_eng)
     del stream_eng
     res.update(timing_slice(hub_eng, pb, pw))
+    torch.cuda.synchronize()
+
+    run_hybrid18(g)
+    del hub_eng, ring_eng, g
+    torch.cuda.empty_cache()
+    run_generic_cli()
+    run_map_vs_compact()
+    run_setops_card_vs_cpu()
+    run_hybrid20()
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,13 +1,18 @@
 """Command-line interface, in the shape of graphminer_tpu's:
 
-    python -m graphminer_tpu_torch tc <graph_prefix> --fast
+    python -m graphminer_tpu_torch tc <graph_prefix> [--fast]
+    python -m graphminer_tpu_torch clique <graph_prefix> 5
+    python -m graphminer_tpu_torch sgl <graph_prefix> diamond
     python -m graphminer_tpu_torch info <graph_prefix>
 
-Ported so far: `tc --fast` (the stream engine) and `info`, with the --cpu,
---json and --profile flags. Without --cpu the count runs on CUDA, and it
-fails when no card is visible. Every other verb, `tc` without --fast (the
-generic set-operation path), and the --sharded/--partition/--chunk/
---backend/--engine flags are not ported yet: they exit non-zero and name
+Ported so far: `tc` (the generic set-operation path; with --fast the stream
+engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
+engine; clique 3 --fast is the stream engine) and `info`, with the --cpu,
+--json, --profile, --chunk, --backend and --engine flags (their defaults
+come from GRAPHMINER_* variables through Config.from_env). Without --cpu
+the count runs on CUDA, and it fails when no card is visible. Every other
+verb, the fast clique (k >= 4) and SgL engines, and the --sharded and
+--partition flags are not ported yet: they exit non-zero and name
 ROADMAP.md, and nothing runs in their place.
 """
 from __future__ import annotations
@@ -18,7 +23,7 @@ import sys
 import time
 
 VERBS = ["tc", "clique", "sgl", "motif", "sc", "fsm", "gks", "query", "info"]
-PORTED_VERBS = ("tc", "info")
+PORTED_VERBS = ("tc", "clique", "sgl", "info")
 
 
 def _not_ported(what: str) -> None:
@@ -27,6 +32,8 @@ def _not_ported(what: str) -> None:
 
 
 def main(argv=None):
+    from .config import Config
+    cfg = Config.from_env()          # GRAPHMINER_* env vars seed the defaults
     p = argparse.ArgumentParser(prog="graphminer_tpu_torch")
     p.add_argument("workload", choices=VERBS)
     p.add_argument("graph", help="graph prefix (…/graph)")
@@ -36,11 +43,14 @@ def main(argv=None):
                         "kernels) instead of CUDA")
     p.add_argument("--sharded", action="store_true",
                    help="shard over all visible devices (not ported)")
-    p.add_argument("--chunk", type=int, default=None, help="(not ported)")
-    p.add_argument("--backend", default=None, help="(not ported)")
-    p.add_argument("--engine", default=None, help="(not ported)")
+    p.add_argument("--chunk", type=int, default=cfg.chunk,
+                   help="edge tasks per device chunk")
+    p.add_argument("--backend", default=cfg.backend,
+                   help="setops backend: auto | bc | bs")
+    p.add_argument("--engine", default=cfg.engine,
+                   help="frontier engine: compact | map")
     p.add_argument("--fast", action="store_true",
-                   help="fast engines: tc = stream engine")
+                   help="fast engines: tc and clique 3 = stream engine")
     p.add_argument("--partition", type=int, default=0, metavar="N",
                    help="(not ported)")
     p.add_argument("--profile", action="store_true",
@@ -51,11 +61,9 @@ def main(argv=None):
 
     if ns.workload not in PORTED_VERBS:
         _not_ported(f"the '{ns.workload}' verb")
-    for flag in ("sharded", "partition", "chunk", "backend", "engine"):
+    for flag in ("sharded", "partition"):
         if getattr(ns, flag):
             _not_ported(f"--{flag}")
-    if ns.workload == "tc" and not ns.fast:
-        _not_ported("tc without --fast (the generic set-operation path)")
 
     from .device import resolve_device
     try:
@@ -71,15 +79,37 @@ def main(argv=None):
 
     t0 = time.time()
     out = {}
+    run = dict(chunk=ns.chunk, backend=ns.backend, engine=ns.engine,
+               device=device)
     if ns.workload == "info":
         out = {"V": g.n_vertices, "E": g.n_edges, "max_degree": g.max_degree,
                "has_vlabels": g.vlabels is not None}
-    else:
-        from .ops.stream import triangle_count_stream
-        out["total"] = triangle_count_stream(g, device=device)
+    elif ns.workload == "tc":
+        if ns.fast:
+            from .ops.stream import triangle_count_stream
+            out["total"] = triangle_count_stream(g, device=device)
+        else:
+            from .workloads.triangle import triangle_count
+            out["total"] = triangle_count(g, chunk=ns.chunk,
+                                          backend=ns.backend,
+                                          bucketed=cfg.bucketed,
+                                          device=device)
+    elif ns.workload == "clique":
+        from .workloads.clique import clique_count
+        k = int(ns.args[0]) if ns.args else 4
+        out["total"] = clique_count(g, k, fast=ns.fast, **run)
+        out["k"] = k
+    elif ns.workload == "sgl":
+        from .workloads.sgl import sgl_count
+        # pattern = a name (diamond, house, …) or @<pattern_file> in the
+        # reference's adjacency-text / CSR-binary formats (pattern.cc:80)
+        pattern = ns.args[0] if ns.args else "diamond"
+        out["total"] = sgl_count(g, pattern, fast=ns.fast, **run)
+        out["pattern"] = pattern
     out["load_s"] = round(t_load, 3)
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:
+        from .ops.cuda_hubcore import hub_tail_count
         from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
         from .ops.cuda_stream import stream_bucket_count
         from .utils.profiling import PROFILER
@@ -91,7 +121,8 @@ def main(argv=None):
         rep["device"] = str(device)
         rep["kernel_launches"] = {
             f.__name__: f.launches
-            for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs)}
+            for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
+                      hub_tail_count)}
         out["profile"] = rep
 
     if ns.json:

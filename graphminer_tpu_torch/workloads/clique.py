@@ -1,0 +1,38 @@
+"""k-clique counting (k-CL).
+
+The counterpart of graphminer_tpu/workloads/clique.py. Parity: src/clique/ —
+automine_omp.h:2-183 (DAG nested DFS) and clique{4,5}_warp_edge.cuh GPU
+kernels. clique_plan(k) interpreted by the frontier engine over the oriented
+DAG.
+
+fast=True at k = 3 runs the stream engine (kernel A) on an undirected
+graph. The fast engines for k >= 4 (graphminer_tpu's ops/cliquek.py and
+ops/cliquebig.py) are not ported yet: fast=True there raises SystemExit
+naming ROADMAP.md, whether the graph is a DAG or not, and nothing runs in
+their place.
+"""
+from __future__ import annotations
+
+from ..core.plan import clique_plan
+from ..device import DeviceLike
+from ..engine.frontier import count_pattern
+
+
+def clique_count(g, k: int, chunk: int = 1024, backend: str = "auto",
+                 fast: bool = False, engine: str = "compact",
+                 device: DeviceLike = "cuda") -> int:
+    """Exact k-clique count.
+
+    fast=True routes k=3 through the stream engine; plain runs use the
+    plan-interpreting frontier."""
+    assert k >= 3
+    if fast and k >= 4:
+        raise SystemExit(
+            f"graphminer_tpu_torch: the fast {k}-clique engine "
+            f"({'ops/cliquek.py' if k in (4, 5) else 'ops/cliquebig.py'}) "
+            "is not ported yet (see ROADMAP.md, queue 1 item 5)")
+    if fast and not g.is_dag:
+        from ..ops.stream import triangle_count_stream
+        return triangle_count_stream(g, device=device)
+    return count_pattern(g, clique_plan(k), chunk=chunk, backend=backend,
+                         engine=engine, device=device)

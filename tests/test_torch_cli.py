@@ -1,5 +1,5 @@
 """Port CLI (python -m graphminer_tpu_torch) against the JAX package's CLI
-on an rmat12 graph saved in the reference binary format."""
+on rmat12 and rmat10 graphs saved in the reference binary format."""
 import json
 import os
 import subprocess
@@ -22,6 +22,13 @@ def prefix(tmp_path_factory):
     return p
 
 
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("rmat10") / "graph")
+    save_graph(rmat(10, 8, seed=7), p)
+    return p
+
+
 def run(fn, capsys, *args):
     assert fn(list(args) + ["--json"]) == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -41,7 +48,8 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert prof["device"] == "cpu"
     assert prof["counters"]["edge_tasks"] > 0
     assert set(prof["kernel_launches"]) == {
-        "stream_bucket_count", "ring_phase_c", "ring_tail_pairs"}
+        "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
+        "hub_tail_count"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):
@@ -60,10 +68,27 @@ def test_tc_without_card_exits_naming_cuda(prefix):
 
 
 @pytest.mark.parametrize("args", [
-    ("tc",), ("clique", "4", "--fast"), ("sgl", "diamond"), ("motif", "3"),
+    ("tc", "--partition", "2"), ("clique", "4", "--fast"),
+    ("sgl", "diamond", "--fast"), ("motif", "3"),
     ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
 def test_unported_exits_naming_roadmap(prefix, args):
     with pytest.raises(SystemExit) as e:
         main([args[0], prefix, *args[1:], "--cpu"])
     assert e.value.code != 0
     assert "ROADMAP.md" in str(e.value.code)
+
+
+@pytest.mark.parametrize("args", [
+    ("tc",), ("tc", "--backend", "bc", "--chunk", "1000"),
+    ("clique", "4"), ("clique", "4", "--engine", "map"),
+    ("sgl", "diamond"), ("sgl", "rectangle", "--backend", "bs")])
+def test_generic_verbs_cpu_agree_with_jax(small, capsys, args):
+    ours = run(main, capsys, args[0], small, *args[1:], "--cpu", "--profile")
+    ref = run(jmain, capsys, args[0], small, *args[1:], "--cpu")
+    assert ours["total"] == ref["total"] > 0
+    for key in ("k", "pattern"):
+        assert ours.get(key) == ref.get(key)
+    prof = ours["profile"]
+    assert prof["device"] == "cpu"
+    assert prof["counters"]["edge_tasks"] > 0
+    assert set(prof["kernel_launches"].values()) == {0}

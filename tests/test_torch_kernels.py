@@ -386,3 +386,29 @@ def test_engines_rmat14_golden(dev):
     assert eng.count() == 2_860_691
     assert cuda_hubcore.hub_tail_count.launches > before
     assert eng.count_tail() + eng.count_core() == 2_860_691
+
+
+def test_hybrid_launches_a_and_b_once(dev):
+    from graphminer_tpu_torch.ops.hybrid import HybridEngine
+    g = rmat(12, 16, seed=7)
+    eng = HybridEngine(g, core=1024, device=dev)
+    plain = HybridEngine(g, core=1024, device="cpu")
+    assert eng.ring.cbuckets and eng.stream.buckets
+    before = {f: f.launches for f in (
+        cuda_stream.stream_bucket_count, cuda_ring.ring_phase_c,
+        cuda_ring.ring_tail_pairs, cuda_hubcore.hub_tail_count)}
+    assert eng.count() == plain.count() == 482_181
+    assert {f: f.launches - n for f, n in before.items()} == {
+        cuda_stream.stream_bucket_count: 1, cuda_ring.ring_phase_c: 1,
+        cuda_ring.ring_tail_pairs: 0, cuda_hubcore.hub_tail_count: 0}
+    assert int(cuda_ring.ring_phase_c_all(eng.phase_c_plan).sum()) == \
+        int(cuda_ring.ring_phase_c_all_plain(plain.phase_c_plan).sum())
+    assert int(cuda_stream.stream_count_all(eng.stream_plan).sum()) == \
+        int(cuda_stream.stream_count_all_plain(plain.stream_plan).sum())
+
+
+@pytest.mark.parametrize("backend", ["bc", "bs"])
+def test_generic_tc_on_card(dev, backend):
+    from graphminer_tpu_torch.workloads.triangle import triangle_count
+    g = rmat(12, 16, seed=7)
+    assert triangle_count(g, backend=backend, device=dev) == 482_181
