@@ -6,26 +6,30 @@
 Drives the port's paths — exact triangle counting on RMAT scale 18, edge
 factor 16, seed 7 (82,947,332 triangles) through the stream, ring,
 hub-core and hybrid engines and the generic set-operation path, the
-three probe scripts, and the generic clique and SgL counts — and fails
-(non-zero exit, no result line) when any phase fails:
+three probe scripts, the generic clique and SgL counts, and the fast 4- and
+5-clique engine on the same graph (2,280,263,816 and 55,374,832,965) — and
+fails (non-zero exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
-  3. holds kernels A, B, C, D, E, m3, m3b and R against their plain
+  3. holds kernels A, B, C, D, E, m3, m3b, R, X and L against their plain
      PyTorch versions on the card, exactly: random inputs over every width
      class, A, B, C and E also as one grouped launch over random
-     multi-bucket sets, then the real buckets and tail groups of rmat14
-     builds, one by one and grouped (counts 2,860,691, also through
-     TriangleEngine);
+     multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
+     L at 3-8 rows a task and with no task (no launch), then the real
+     buckets and tail groups of rmat14 builds, one by one and grouped
+     (counts 2,860,691, also through TriangleEngine), and X's slabs, B_hh
+     and L's lo tasks of the rmat14 CliqueKEngine at k = 4 and 5;
   4. runs `python -m graphminer_tpu_torch tc <rmat18> --fast --json
      --profile` and checks its count and that kernel A launched once;
   5. runs the ring engine on the same graph and checks its count and that
      kernels B and C launched once each;
   6. runs TriangleEngine on the same graph (count, tail + core split,
-     kernel E launched once), the port's prof_breakdown at rmat18 (kernels
-     E and D) and prof_window at its defaults (m1 = m2 = m3 = m3b), in
-     process;
+     kernel E launched once, the spoke expanded by kernel X, which is held
+     to its plain version on the spoke's first slab and core mask), the
+     port's prof_breakdown at rmat18 (kernels E and D) and prof_window at
+     its defaults (m1 = m2 = m3 = m3b), in process;
   7. times every kernel with CUDA events (median of 11 after warm-up),
      kernel and plain version side by side, each beside the least time an
      H100 could take for the same work (A, B, C and E as the engines'
@@ -41,9 +45,10 @@ three probe scripts, and the generic clique and SgL counts — and fails
   8. runs the hybrid engine (ring phase C + sub-core stream) on rmat18:
      count, one launch each of B and A and none of C or E, the coverage
      of the DAG edges, layout bytes, device count time and busy share;
-  9. runs `python -m graphminer_tpu_torch` without --fast and without
-     --cpu: tc on rmat18, clique 4 and 5 on rmat14 (36,628,817 and
-     387,027,732), sgl diamond and rectangle on rmat12 (57,515,371 and
+  9. runs `python -m graphminer_tpu_torch` without --cpu: tc on rmat18,
+     clique 4 and 5 on rmat14 (36,628,817 and 387,027,732) generic and
+     with --fast (CliqueKEngine: X launched, L once where there are lo
+     tasks), sgl diamond and rectangle on rmat12 (57,515,371 and
      52,988,519), each against its golden, with its run_s;
  10. holds the frontier's map engine against its compact engine on the
      card at rmat10, cliques k = 3-5 and the four SGL plans;
@@ -52,9 +57,15 @@ three probe scripts, and the generic clique and SgL counts — and fails
  12. sizes the hybrid's sub-core stream at rmat20 (build_stream
      plan_only), builds the engine and checks its count (423,537,282),
      the estimate against the built bytes, its launches, the peak device
-     memory and the device count time.
+     memory and the device count time;
+ 13. builds CliqueKEngine on rmat18 at k = 4, then at k = 5, and checks each
+     count (2,280,263,816 and 55,374,832,965), that X launched once a slab
+     and L once, and prints prep time, task counts, the device count split
+     hi / lo, X's, torch._int_mm's and L's device time beside their bounds
+     and the peak device memory; then holds X to its plain version on the
+     first and the last slab of each count and L on each lo task list.
 
-Each path of phases 2, 4-6, 8 and 12 runs with every launch count set to
+Each path of phases 2, 4-6, 8, 12 and 13 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The rmat12, rmat14, rmat18 and rmat20 graphs are written
@@ -112,7 +123,17 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/times_two.cu",
         "replaces": "scripts/repro_mosaic_hang.py:26"},
+    "expand_bits": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/expand_bits.cu",
+        "replaces": "graphminer_tpu/ops/hubcore.py:252"},
+    "lo_popcount": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/lo_popcount.cu",
+        "replaces": "graphminer_tpu/ops/cliquek.py:311"},
 }
+#: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
+GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
 MAX_ERR = {k: 0 for k in KERNELS}
 #: window_count's rows_per_step of kernels m3 and m3b
 WINDOW_ROWS = {"window_count_m3": 1, "window_count_m3b": 8}
@@ -162,7 +183,8 @@ def build_kernels():
 def wrappers():
     """{kernel name: wrapper} for every kernel that counts its launches in
     process (kernel A's count comes from the CLI's own process)."""
-    from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore,
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
+                                          cuda_expand, cuda_hubcore,
                                           cuda_ring, cuda_stream, cuda_window,
                                           fetch)
     return {"stream_bucket_count": cuda_stream.stream_bucket_count,
@@ -171,7 +193,9 @@ def wrappers():
             "fetch_rows_sum": fetch.fetch_rows_sum,
             "hub_tail_count": cuda_hubcore.hub_tail_count,
             "window_count": cuda_window.window_count,
-            "times_two": cuda_check.times_two}
+            "times_two": cuda_check.times_two,
+            "expand_bits": cuda_expand.expand_bits,
+            "lo_popcount": cuda_cliquek.lo_popcount}
 
 
 def reset_counts():
@@ -222,6 +246,18 @@ def compare(name, kernel_val, plain_val, what):
     p = torch.as_tensor(plain_val).to(torch.int64).cpu()
     check(k.shape == p.shape, f"{name} {what}: shapes {k.shape} {p.shape}")
     err = int((k - p).abs().max()) if k.numel() else 0
+    MAX_ERR[name] = max(MAX_ERR[name], err)
+    check(err == 0, f"{name} {what}: kernel != plain (max abs err {err})")
+
+
+def compare_rows(name, kernel_val, plain_val, what):
+    """compare() for large int8 tensors (kernel X's rows), on the card."""
+    check(kernel_val.shape == plain_val.shape and
+          kernel_val.dtype == plain_val.dtype == torch.int8,
+          f"{name} {what}: {kernel_val.dtype} {tuple(kernel_val.shape)} vs "
+          f"{plain_val.dtype} {tuple(plain_val.shape)}")
+    err = int((kernel_val.to(torch.int16) - plain_val.to(torch.int16))
+              .abs().max()) if kernel_val.numel() else 0
     MAX_ERR[name] = max(MAX_ERR[name], err)
     check(err == 0, f"{name} {what}: kernel != plain (max abs err {err})")
 
@@ -303,6 +339,7 @@ def kernel_checks_random():
                     f"random wa={wa} wb={wb}")
             n_cases += 1
     n_cases += kernel_checks_random_slice2(rng, t)
+    n_cases += kernel_checks_random_x_l(rng, t)
     n_cases += grouped_checks_random(rng, t)
     n_cases += grouped_checks_random_be(rng, t)
     torch.cuda.synchronize()
@@ -482,6 +519,107 @@ def kernel_checks_random_slice2(rng, t):
                 f"random T={tk} cap={cap} span={span} w={w}")
             n_cases += 1
     return n_cases
+
+
+def kernel_checks_random_x_l(rng, t):
+    """X and L on random inputs; returns the number of cases. X: plain mode
+    on strided slices (ld > hw) at hw 1, 2, 16, 32 and 128 with n no
+    multiple of 8 and padded n_out, and gathered mode at depth 0-4 (rows
+    explicit and by task) with SENTINEL and out-of-range ids, both
+    output layouts; L: nrow 3-8 with SENTINEL rows and ids outside the
+    tables, and an empty task list, which must launch nothing."""
+    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
+    X, xp = cuda_expand.expand_bits, cuda_expand.expand_bits_plain
+    n_cases = 0
+    for hw, ld, n in ((1, 5, 1001), (2, 8, 4093), (16, 24, 30001),
+                      (32, 128, 20005), (128, 136, 9999)):
+        view = t(_words(rng, (n, ld)))[:, ld - hw:]
+        n_out = -(-(n + 7) // 32) * 32
+        for tr in (False, True):
+            compare_rows("expand_bits", X(view, n_out=n_out, transpose=tr),
+                         xp(view, n_out=n_out, transpose=tr),
+                         f"random hw={hw} ld={ld} n={n} transpose={tr}")
+            n_cases += 1
+    hw, nb, nt, n = 16, 5000, 4096, 50000
+    base, tab = t(_words(rng, (nb, 32)))[:, 16:], t(_words(rng, (nt, hw)))
+    for depth in range(5):
+        cols = rng.integers(-3, nt + 3, (n, depth)).astype(np.int32)
+        cols[rng.random((n, depth)) < 0.05] = SENTINEL
+        r = rng.integers(-3, nb + 3, n).astype(np.int32)
+        r[rng.random(n) < 0.05] = SENTINEL
+        for kw in (dict(r=t(r)), {}):
+            for tr in (False, True):
+                args = dict(tab=tab, cols=t(cols), n_out=50016, transpose=tr,
+                            **kw)
+                compare_rows("expand_bits", X(base, **args),
+                             xp(base, **args),
+                             f"random gathered depth={depth} "
+                             f"{sorted(kw)} transpose={tr}")
+                n_cases += 1
+    v, c = 20000, 4096
+    for words in (8, 128):
+        bm = t(_words(rng, (v, words)))
+        core = bm[v - c:]
+        for nrow in range(3, 9):
+            n = 100000 if words == 8 else 30000
+            cols = np.concatenate([rng.integers(-1, v + 1, (n, 2)),
+                                   rng.integers(-2, c + 2, (n, nrow - 2))],
+                                  axis=1).astype(np.int32)
+            cols[-4096:] = SENTINEL
+            cols = t(cols)
+            compare("lo_popcount",
+                    cuda_cliquek.lo_popcount(bm, core, cols).sum(),
+                    cuda_cliquek.lo_popcount_plain(bm, core, cols).sum(),
+                    f"random words={words} nrow={nrow}")
+            n_cases += 1
+    before = cuda_cliquek.lo_popcount.launches
+    got = cuda_cliquek.lo_popcount(bm, core, cols[:0])
+    check(cuda_cliquek.lo_popcount.launches == before and int(got.sum()) == 0,
+          "lo_popcount with no tasks launched or counted")
+    return n_cases + 1
+
+
+def kernel_checks_cliquek14():
+    """X and L on the rmat14 CliqueKEngine inputs at k = 4 and 5: every
+    slab X expands in a count and B_hh against the plain version, and L on
+    the lo tasks; then the count against phase 9's generic goldens.
+    Returns {k: lo tasks}, which phase 9's `clique k --fast` runs share."""
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
+    from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    g = rmat(14, 16, seed=7)
+    n_lo = {}
+    for k, want in ((4, 36_628_817), (5, 387_027_732)):
+        eng = CliqueKEngine(g, k, device="cuda")
+        hd, hw = eng.hi_dim, eng.hi_words
+        lo_cut = eng.words * 32 - hd
+        view = eng.core[lo_cut:, eng.words - hw:]
+        compare_rows("expand_bits", eng.bhh, cuda_expand.expand_bits_plain(
+            view, n_out=hd), f"rmat14 k={k} B_hh")
+        n_slabs = 0
+        for base, kw in eng.slab_args():
+            compare_rows("expand_bits", cuda_expand.expand_bits(base, **kw),
+                         cuda_expand.expand_bits_plain(base, **kw),
+                         f"rmat14 k={k} slab {n_slabs} ({sorted(kw)})")
+            n_slabs += 1
+        check(n_slabs == eng.n_slabs, f"rmat14 k={k}: {n_slabs} slabs != "
+              f"{eng.n_slabs}")
+        if eng.lo_cols is not None:
+            compare("lo_popcount",
+                    cuda_cliquek.lo_popcount(eng.bm, eng.core,
+                                             eng.lo_cols).sum(),
+                    cuda_cliquek.lo_popcount_plain(eng.bm, eng.core,
+                                                   eng.lo_cols).sum(),
+                    f"rmat14 k={k} lo tasks")
+        got = eng.count()
+        check(got == want, f"rmat14 CliqueKEngine k={k}: {got} != {want}")
+        say(f"rmat14 CliqueKEngine k={k}: X == plain on B_hh and {n_slabs} "
+            f"slabs, L == plain on {eng.n_lo} lo tasks; count {got} "
+            f"(n_core_edges {eng.n_core_edges}, n_tri {eng.n_tri})")
+        n_lo[k] = eng.n_lo
+        del eng
+    torch.cuda.empty_cache()
+    return n_lo
 
 
 def bucket_calls(stream_eng, ring_eng):
@@ -922,7 +1060,8 @@ def run_triangle_engine(g):
     eng = TriangleEngine(g, device="cuda")
     t_build = time.perf_counter() - t0
     total, launches = run_path("TriangleEngine rmat18 count", eng.count,
-                               ["hub_tail_count"])
+                               ["hub_tail_count", "expand_bits"])
+    launches.pop("expand_bits")         # X's launches are phase 13's
     check(launches["hub_tail_count"] == 1,
           f"kernel E launched {launches['hub_tail_count']} times by the "
           "hub-core count, not once")
@@ -990,8 +1129,9 @@ def timing_slice(hub_eng, pb, pw):
     """Kernels E, D, m3, m3b and R and the spoke product at the shapes of
     their paths, kernel vs plain, each with its bound (E's and m3's as
     prof_breakdown's and prof_window's results `pb` and `pw` gave them)."""
-    from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore,
-                                          cuda_window, fetch, hubcore)
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_expand,
+                                          cuda_hubcore, cuda_window, fetch,
+                                          hubcore)
     from graphminer_tpu_torch.scripts import prof_breakdown, prof_window
     from graphminer_tpu_torch.utils.profiling import bound_ms
     dev = torch.device("cuda")
@@ -1018,18 +1158,29 @@ def timing_slice(hub_eng, pb, pw):
     lay = hub_eng.layout
     cpad = lay.words * 32
     torch.backends.cuda.matmul.allow_tf32 = False
-    xt = hubcore._expand_bits(hub_eng.spoke[:hubcore.MAX_SLAB], cpad,
-                              transpose=True)
+    first = hub_eng.spoke[:hubcore.MAX_SLAB]
+    xt = hubcore._expand_bits(first, cpad, transpose=True)
+    compare_rows("expand_bits", xt, cuda_expand.expand_bits_plain(
+        first, transpose=True), f"rmat18 spoke slab 1 [{cpad}, "
+        f"{first.shape[0]}] (transposed)")
     exact = torch.equal(torch._int_mm(xt, xt.t()),
                         (xt.float() @ xt.t().float()).to(torch.int32))
     check(exact, "torch._int_mm Gram != the f32 Gram on the first slab")
     del xt
+    core_rows = lay.table[lay.table.shape[0] - lay.core_size:, :lay.words]
+    compare_rows("expand_bits", hubcore._expand_bits(core_rows, cpad),
+                 cuda_expand.expand_bits_plain(core_rows),
+                 f"rmat18 spoke core mask [{lay.core_size}, {cpad}] "
+                 f"(row-major, rows of the {lay.table.shape[1]}-word table "
+                 "in place)")
     s_ms, spoke = time_ms(lambda: hub_eng.core_partials().sum())
     ops = 2 * cpad * cpad * hub_eng.spoke.shape[0]
     sb_ms, sb_by = bound_ms(hub_eng.spoke.numel() * 4, ops)
     res["spoke"] = dict(ms=s_ms, bound_ms=sb_ms, bound_by=sb_by, ops=ops)
-    say(f"[{CARD}] spoke product (torch._int_mm, {hub_eng.spoke.shape[0]} "
-        f"rows, Gram == f32 Gram on slab 1): {s_ms:.3f} ms, bound "
+    say(f"[{CARD}] spoke product (X + torch._int_mm, "
+        f"{hub_eng.spoke.shape[0]} rows, Gram == f32 Gram on slab 1): "
+        f"{s_ms:.3f} ms (with the torch expansion before kernel X: "
+        f"25.668 ms on an H100 80GB HBM3, 700 W), bound "
         f"{sb_ms:.4f} ms ({sb_by}, {ops:.4e} int8 ops); count {int(spoke)}")
     e_ms, total = time_ms(lambda: hub_eng.tail_partials().sum()
                           + hub_eng.core_partials().sum())
@@ -1228,18 +1379,23 @@ def run_hybrid20():
         f"{time.perf_counter() - t0:.1f} s")
 
 
-#: the generic CLI runs of phase 9: (scale, verb arguments, golden)
+#: the CLI runs of phase 9: (scale, verb arguments, golden); all but the
+#: --fast cliques (CliqueKEngine) take the generic path
 GENERIC_CLI = ((18, ("tc",), GOLDEN[18]),
                (14, ("clique", "4"), 36_628_817),
                (14, ("clique", "5"), 387_027_732),
+               (14, ("clique", "4", "--fast"), 36_628_817),
+               (14, ("clique", "5", "--fast"), 387_027_732),
                (12, ("sgl", "diamond"), 57_515_371),
                (12, ("sgl", "rectangle"), 52_988_519))
 
 
-def run_generic_cli():
+def run_generic_cli(n_lo14):
     """Phase 9: `python -m graphminer_tpu_torch <verb>` on CUDA, without
-    --fast and without --cpu: the generic set-operation path (setops,
-    DeviceGraph, the frontier engine). It launches no kernel of ours."""
+    --cpu: the generic set-operation path (setops, DeviceGraph, the frontier
+    engine), which launches no kernel of ours, and `clique 4|5 --fast`
+    (CliqueKEngine at its defaults), which must launch X and, when the
+    engine has lo tasks (`n_lo14`, phase 3's rmat14 engines), L once."""
     t0 = time.perf_counter()
     for scale in sorted({s for s, _, _ in GENERIC_CLI} - {18}):
         write_rmat(scale)
@@ -1254,7 +1410,9 @@ def run_generic_cli():
         check(r.returncode == 0, f"CLI {args} exited {r.returncode}")
         res = json.loads(r.stdout.strip().splitlines()[-1])
         prof = res["profile"]
-        say(f"[{CARD}] CLI {' '.join(args)} rmat{scale} (generic, cuda): "
+        fast = "--fast" in args
+        say(f"[{CARD}] CLI {' '.join(args)} rmat{scale} "
+            f"({'CliqueKEngine' if fast else 'generic'}, cuda): "
             f"total={res['total']} run_s={res['run_s']} "
             f"load_s={res['load_s']} device_count_s="
             f"{prof['phases_s'].get('device_count')} device={prof['device']}"
@@ -1263,6 +1421,12 @@ def run_generic_cli():
         check(prof["device"] == "cuda", f"CLI {args} ran on {prof['device']}")
         check(res["total"] == want, f"CLI {args} rmat{scale} total "
               f"{res['total']} != {want}")
+        x_l = [prof["kernel_launches"][k] for k in ("expand_bits",
+                                                     "lo_popcount")]
+        # X: B_hh and each slab; L: once, unless the engine has no lo task
+        check(x_l[0] >= 2 and x_l[1] == int(n_lo14[int(args[1])] > 0)
+              if fast else not any(x_l),
+              f"CLI {args}: launches of X and L {x_l}")
         out[" ".join(args)] = res["run_s"]
     say(f"generic CLI phase: {time.perf_counter() - t0:.1f} s")
     return out
@@ -1338,12 +1502,149 @@ def run_setops_card_vs_cpu():
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def lo_bytes(eng, n_partials):
+    """The bytes kernel L must move for an engine's lo tasks: the task
+    columns, each bitmap row that a valid task names read once (core rows
+    are bm rows), and its n_partials int64 partials."""
+    cols = eng.lo_cols
+    v, cs = eng.bm.shape[0], eng.bm.shape[0] - eng.core.shape[0]
+    ab, cd = cols[:, :2].long(), cols[:, 2:].long()
+    ok = ((ab >= 0) & (ab < v)).all(dim=1) & \
+        ((cd >= 0) & (cd < eng.core.shape[0])).all(dim=1)
+    ids = torch.cat([ab[ok].reshape(-1), cd[ok].reshape(-1) + cs])
+    return (cols.numel() * 4 + int(torch.unique(ids).numel()) * eng.words * 4
+            + 8 * n_partials)
+
+
+def x_bytes(base, kw, out):
+    """The bytes kernel X must move for one call: its output written, the
+    task ids read, and each packed row a valid task names read once (the
+    whole of `base` in plain mode)."""
+    hw = base.shape[1]
+    n = out.numel()
+    for ids, tab in ((kw.get("r"), base), (kw.get("cols"), kw.get("tab"))):
+        if ids is None:
+            continue
+        ids = ids.long()
+        ok = (ids >= 0) & (ids < tab.shape[0])
+        n += ids.numel() * 4 + int(torch.unique(ids[ok]).numel()) * hw * 4
+    return n + (base.numel() * 4 if kw.get("r") is None else 0)
+
+
+def run_clique18(g):
+    """Phase 13: CliqueKEngine on rmat18 at k = 4, then (the first freed)
+    at k = 5, each against GOLDEN_CK: prep, the native enumerator, task
+    counts, the count with launches read from counts reset just before it
+    (X once a slab, L once when there are lo tasks), the device count split
+    hi / lo (CUDA events; the tail is the frontier's, counted at build),
+    X's, torch._int_mm's and L's device time beside their bounds, and the
+    peak device memory; then X against its plain version on the first and
+    the last slab of each count, and L on each engine's lo tasks. Returns
+    ({kernel: timing} for X at k = 4's first slab and L at k = 5,
+    {kernel: launches over both counts})."""
+    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
+    from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    from graphminer_tpu_torch.utils.profiling import bound_ms
+    res, launches = {}, {"expand_bits": 0, "lo_popcount": 0}
+    for k in (4, 5):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = CliqueKEngine(g, k, device="cuda")
+        torch.cuda.synchronize()
+        say(f"CliqueKEngine rmat18 k={k}: build {time.perf_counter() - t0:.1f}"
+            f" s (prep {eng.prep_s:.1f} s, "
+            f"{'native' if eng.native else 'numpy'} enumerator; tail by the "
+            f"frontier {eng.tail_s:.1f} s, {eng.tail_total} cliques); "
+            f"n_core_edges {eng.n_core_edges} n_tri {eng.n_tri} n_lo "
+            f"{eng.n_lo} of {eng.n_edges} DAG edges; hi {eng.hi_dim}, "
+            f"{eng.n_slabs} slabs of <= {eng.slab} tasks")
+        path = ["expand_bits"] + (["lo_popcount"] if eng.n_lo else [])
+        total, got = run_path(f"CliqueKEngine rmat18 k={k} count", eng.count,
+                              path)
+        check(total == GOLDEN_CK[k], f"rmat18 {k}-cliques {total} != "
+              f"{GOLDEN_CK[k]}")
+        check(got["expand_bits"] == eng.n_slabs, f"X launched "
+              f"{got['expand_bits']} times over {eng.n_slabs} slabs")
+        check(got.get("lo_popcount", 0) == (1 if eng.n_lo else 0),
+              f"L launched {got.get('lo_popcount')} times")
+        for key, n in got.items():
+            launches[key] += n
+        hi_ms, hi = time_ms(lambda: eng.hi_partials().sum())
+        lo_ms, lo = time_ms(lambda: eng.lo_partials().sum())
+        all_ms, both = time_ms(lambda: eng.hi_partials().sum()
+                               + eng.lo_partials().sum())
+        check(int(both) + eng.tail_total == GOLDEN_CK[k],
+              f"rmat18 k={k} hi + lo + tail")
+        slabs = list(eng.slab_args())
+        base, kw = slabs[0]
+        x_ms, yt = time_ms(lambda: cuda_expand.expand_bits(base, **kw))
+        x_bound = bound_ms(x_bytes(base, kw, yt))
+        mm_ms, _ = time_ms(lambda: torch._int_mm(yt, yt.t()))
+        mm_bound = bound_ms(0, 2 * eng.hi_dim ** 2 * yt.shape[1])
+        rows_hi = sum(eng.slab_tasks)
+        hi_bound = bound_ms(rows_hi * eng.hi_dim,
+                            2 * eng.hi_dim ** 2 * rows_hi)
+        say(f"[{CARD}] CliqueKEngine rmat18 k={k}: count {total} (hi "
+            f"{int(hi)} + lo {int(lo)} + tail {eng.tail_total}); device "
+            f"count {all_ms:.3f} ms (hi {hi_ms:.3f} ms over {eng.n_slabs} "
+            f"slabs of {rows_hi} expanded rows in all, bound "
+            f"{hi_bound[0]:.3f} ms ({hi_bound[1]}); lo {lo_ms:.4f} ms), "
+            f"{eng.n_core_edges / all_ms * 1e3:.4e} core edge tasks/s; first "
+            f"slab [{yt.shape[0]}, {yt.shape[1]}]: "
+            f"X {x_ms:.4f} ms (bound {x_bound[0]:.4f} ms, bytes), _int_mm "
+            f"{mm_ms:.3f} ms (bound {mm_bound[0]:.4f} ms, operations); "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+            f"memory_reserved {torch.cuda.memory_reserved()} B")
+        del yt
+        # X == plain on the first and the last slab of the count (the last
+        # is the one with padding rows)
+        for i in sorted({0, len(slabs) - 1}):
+            base, kw = slabs[i]
+            if k == 4 and i == 0:
+                kx, px, kv, pv = in_turns(
+                    lambda: cuda_expand.expand_bits(base, **kw),
+                    lambda: cuda_expand.expand_bits_plain(base, **kw))
+                res["expand_bits"] = dict(ms=kx, plain_ms=px,
+                                          bound_ms=x_bound[0],
+                                          bound_by=x_bound[1],
+                                          library_ms=None)
+            else:
+                kv = cuda_expand.expand_bits(base, **kw)
+                pv = cuda_expand.expand_bits_plain(base, **kw)
+            compare_rows("expand_bits", kv, pv, f"rmat18 k={k} slab {i} of "
+                         f"{len(slabs)} ({sorted(kw)})")
+            del kv, pv
+        if eng.n_lo:
+            kl, pl, kv, pv = in_turns(
+                lambda: cuda_cliquek.lo_popcount(eng.bm, eng.core,
+                                                 eng.lo_cols),
+                lambda: cuda_cliquek.lo_popcount_plain(eng.bm, eng.core,
+                                                       eng.lo_cols))
+            compare("lo_popcount", kv.sum(), pv.sum(),
+                    f"rmat18 k={k} lo tasks")
+            nbytes = lo_bytes(eng, kv.numel())
+            lb = bound_ms(nbytes)
+            if k == 5:
+                res["lo_popcount"] = dict(ms=kl, plain_ms=pl, bound_ms=lb[0],
+                                          bound_by=lb[1], library_ms=None)
+            say(f"[{CARD}] lo_popcount rmat18 k={k} ({eng.n_lo} lo tasks, 1 "
+                f"launch): kernel {kl:.4f} ms, plain {pl:.3f} ms, bound "
+                f"{lb[0]:.4f} ms ({lb[1]}, {nbytes} B)")
+        del eng
+    torch.cuda.empty_cache()
+    check(set(res) == {"expand_bits", "lo_popcount"},
+          f"phase 13 timed only {sorted(res)}")
+    return res, launches
+
+
 def main():
     check_environment()
     build_kernels()
     launches = run_launch_check()
     kernel_checks_random()
     kernel_checks_rmat14()
+    n_lo14 = kernel_checks_cliquek14()
 
     g = write_rmat18()
     launches["stream_bucket_count"] = run_cli()
@@ -1367,12 +1668,15 @@ def main():
     torch.cuda.synchronize()
 
     run_hybrid18(g)
-    del hub_eng, ring_eng, g
+    del hub_eng, ring_eng
     torch.cuda.empty_cache()
-    run_generic_cli()
+    run_generic_cli(n_lo14)
     run_map_vs_compact()
     run_setops_card_vs_cpu()
     run_hybrid20()
+    ck_res, ck_launches = run_clique18(g)
+    res.update(ck_res)
+    launches.update(ck_launches)
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,11 +7,15 @@
 
 Ported so far: `tc` (the generic set-operation path; with --fast the stream
 engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
-engine; clique 3 --fast is the stream engine) and `info`, with the --cpu,
+engine; clique 3 --fast is the stream engine, clique 4|5 --fast the hi/lo
+clique engine of ops/cliquek.py) and `info`, with the --cpu,
 --json, --profile, --chunk, --backend and --engine flags (their defaults
-come from GRAPHMINER_* variables through Config.from_env). Without --cpu
+come from GRAPHMINER_* variables through Config.from_env). --profile adds
+`kernel_launches`, the launches of kernels A (stream_bucket_count), B
+(ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits)
+and L (lo_popcount) in this process. Without --cpu
 the count runs on CUDA, and it fails when no card is visible. Every other
-verb, the fast clique (k >= 4) and SgL engines, and the --sharded and
+verb, the fast clique (k >= 6) and SgL engines, and the --sharded and
 --partition flags are not ported yet: they exit non-zero and name
 ROADMAP.md, and nothing runs in their place.
 """
@@ -50,7 +54,8 @@ def main(argv=None):
     p.add_argument("--engine", default=cfg.engine,
                    help="frontier engine: compact | map")
     p.add_argument("--fast", action="store_true",
-                   help="fast engines: tc and clique 3 = stream engine")
+                   help="fast engines: tc and clique 3 = stream engine, "
+                        "clique 4|5 = hi/lo clique engine (CliqueKEngine)")
     p.add_argument("--partition", type=int, default=0, metavar="N",
                    help="(not ported)")
     p.add_argument("--profile", action="store_true",
@@ -109,6 +114,8 @@ def main(argv=None):
     out["load_s"] = round(t_load, 3)
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:
+        from .ops.cuda_cliquek import lo_popcount
+        from .ops.cuda_expand import expand_bits
         from .ops.cuda_hubcore import hub_tail_count
         from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
         from .ops.cuda_stream import stream_bucket_count
@@ -122,7 +129,7 @@ def main(argv=None):
         rep["kernel_launches"] = {
             f.__name__: f.launches
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
-                      hub_tail_count)}
+                      hub_tail_count, expand_bits, lo_popcount)}
         out["profile"] = rep
 
     if ns.json:

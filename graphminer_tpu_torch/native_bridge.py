@@ -7,6 +7,9 @@ instruction set it dies with SIGILL, which no `except OSError` catches.
 This bridge compiles its own copy from native/graphcore.cpp at first use,
 without -march=native, into the port's git-ignored build directory, keyed by
 a hash of the source, and loads that copy. native/ itself is not touched.
+It binds orient, relabel_by_degree, sort_neighbors, edge_list, csr_from_coo
+and expand_emit (the k-clique engine's task enumerator); expand_multi,
+count_multi and kclique_dfs wait for the k >= 6 clique engine.
 
 Every entry point returns None when the library is unavailable (no g++ or
 a failed build); core/graph.py then takes its numpy path. Which path was
@@ -94,6 +97,12 @@ def get_lib():
         lib.gm_csr_from_coo.argtypes = [
             ctypes.c_int64, ctypes.c_int64, i32p, i32p, ctypes.c_int,
             i64p, i32p]
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        lib.gm_expand_emit.restype = ctypes.c_int64
+        lib.gm_expand_emit.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, pp, pp, ctypes.c_int64, pp, ctypes.c_int64, i32p,
+            i64p]
         log.info("native preprocessing: %s (%d threads)", path,
                  lib.gm_num_threads())
         _lib = lib
@@ -162,3 +171,36 @@ def csr_from_coo(src: np.ndarray, dst: np.ndarray, n_vertices: int,
     n = lib.gm_csr_from_coo(n_vertices, e, src, dst, int(symmetrize),
                             rowptr, colidx)
     return rowptr, colidx[:n].copy()
+
+
+def _pointers(arrays):
+    """A C array of the arrays' data pointers (void **)."""
+    return ctypes.cast(
+        (ctypes.c_void_p * len(arrays))(
+            *[a.ctypes.data_as(ctypes.c_void_p).value for a in arrays]),
+        ctypes.POINTER(ctypes.c_void_p))
+
+
+def expand_emit(bases, rows, attrs, words: int, n_bits: int, start: int,
+                cap: int, out: np.ndarray):
+    """State-carrying expansion (gm_expand_emit): for tasks from `start`,
+    AND the bitmap rows bases[s][rows[s][t]]; for every set bit below n_bits
+    write [attrs[0][t], ..., attrs[-1][t], bit] into `out` ([cap, n_attr+1]
+    int32), task-major and bit-ascending, whole tasks only. Returns
+    (n_emitted, next_start), or None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bases_c = [np.ascontiguousarray(b.view(np.uint32)) for b in bases]
+    rows_c = [np.ascontiguousarray(r, dtype=np.int32) for r in rows]
+    attrs_c = [np.ascontiguousarray(a, dtype=np.int32) for a in attrs]
+    if not out.flags["C_CONTIGUOUS"] or out.dtype != np.int32 or \
+            out.shape[1] != len(attrs) + 1:
+        raise ValueError(f"out must be C-contiguous int32 [cap, "
+                         f"{len(attrs) + 1}], got {out.dtype} {out.shape}")
+    nxt = np.zeros(1, dtype=np.int64)
+    n = lib.gm_expand_emit(
+        rows_c[0].shape[0], start, words, n_bits, len(bases_c),
+        _pointers(bases_c), _pointers(rows_c), len(attrs_c),
+        _pointers(attrs_c), cap, out.reshape(-1), nxt)
+    return int(n), int(nxt[0])

@@ -90,6 +90,15 @@ _SIGNATURES = {
     "gm_window_count_blocks": [_I64],
     # x, o, n, n_blocks, stream
     "gm_times_two": [_VP, _VP, _I64, _I64, _VP],
+    # base, ldb, nb, r, tab, ldt, nt, c, depth, n, hw, n_out, transpose,
+    # out, stream
+    "gm_expand_bits": [_VP, _I64, _I64, _VP, _VP, _I64, _I64, _VP, _I64,
+                       _I64, _I64, _I64, _I64, _VP, _VP],
+    # bm, v, core, c, words, cols, n, nrow, partials, n_blocks, stream
+    "gm_lo_popcount": [_VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _VP,
+                       _I64, _VP],
+    # -> blocks of one full wave (negative: a CUDA error)
+    "gm_lo_popcount_blocks": [],
 }
 
 

@@ -20,8 +20,9 @@ the core are counted gather-free by the spoke product: for the bit-expanded
 bitmap rows X of every vertex with >= 2 core out-neighbors and the core
 adjacency B, Σ_{(u,v), v ∈ core} |N+(u) ∩ N+(v)| = sum(B ⊙ XᵀX), one int8
 tensor-core product (torch._int_mm, a library call as the JAX package left
-it to XLA). Edges with both endpoints outside the core are tail tasks,
-bucketed by tail-width class and counted by kernel E (ops/cuda_hubcore.py).
+it to XLA) over the bit expansion X by kernel X (ops/cuda_expand.py).
+Edges with both endpoints outside the core are tail tasks, bucketed by
+tail-width class and counted by kernel E (ops/cuda_hubcore.py).
 Host planning (t_class_of, bucket_tail_tasks, pack_groups) is numpy and
 identical to the JAX package's, so task arrays and specs are equal element
 for element; the row tables are index_selects on the device.
@@ -39,6 +40,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from .cuda_expand import expand_bits
 from .cuda_hubcore import hub_tail_count, hub_tail_count_all, plan_tail_count
 
 # T-slot width classes (powers of four — tails are short by design).
@@ -204,22 +206,17 @@ def _tail_partials(src_rows: torch.Tensor, dst_rows: torch.Tensor,
     return torch.stack(outs)
 
 
-def _expand_bits(rows: torch.Tensor, cpad: int, dtype=torch.int8, *,
+def _expand_bits(rows: torch.Tensor, cpad: int, *,
                  transpose: bool = False) -> torch.Tensor:
-    """[n, words] int32 -> [n, cpad] 0/1 of `dtype` (cpad = words * 32), or
-    its transpose [cpad, n] built directly when `transpose`; column w*32+b
-    is bit b of word w, the core-local vertex id w*32+b (the packing order
-    of build_hub_layout).
-
-    torch shifts int32 arithmetically (JAX used shift_right_logical), but
-    (x >> b) & 1 is bit b of x for every b in 0..31 all the same: the sign
-    copies land only in bits above 31 - b, and & 1 keeps bit 0."""
-    shifts = torch.arange(32, dtype=torch.int32, device=rows.device)
-    if transpose:
-        bits = (rows.t()[:, None, :] >> shifts[None, :, None]) & 1
-        return bits.to(dtype).reshape(cpad, rows.shape[0])
-    bits = (rows[:, :, None] >> shifts[None, None, :]) & 1
-    return bits.to(dtype).reshape(rows.shape[0], cpad)
+    """[n, words] int32 -> [n, cpad] int8 0/1 (cpad = words * 32), or its
+    transpose [cpad, n]; column w*32+b is bit b of word w, the core-local
+    vertex id w*32+b (the packing order of build_hub_layout). Kernel X
+    (ops/cuda_expand.py) on a CUDA tensor, which reads a strided view in
+    place and, transposed, takes n % 32 == 0; its plain version on the CPU.
+    """
+    if cpad != rows.shape[1] * 32:
+        raise ValueError(f"cpad={cpad} is not 32 x {rows.shape[1]} words")
+    return expand_bits(rows, transpose=transpose)
 
 
 def _spoke_gemm_partials(table: torch.Tensor, spoke: torch.Tensor, *,
@@ -229,20 +226,24 @@ def _spoke_gemm_partials(table: torch.Tensor, spoke: torch.Tensor, *,
     count of hubcore.py::_spoke_gemm_body in Gram form.
 
     spoke = [N, words] compacted bitmap rows, N % tile == 0 (zero rows add
-    0). Rows are bit-expanded in slabs (tile doubled while it is below N
-    and MAX_SLAB: the JAX slab at a 4096-vertex core, kept only to bound
-    the expanded memory), each slab Xs giving Gram += Xsᵀ Xs
-    by torch._int_mm on int8 0/1 operands with int32 output. That is exact
-    with no f32 bound: a Gram entry counts rows, <= N < 2^31. (bf16
-    torch.matmul would return bf16 and lose counts above 256.)
+    0). Rows are bit-expanded by kernel X in slabs (tile doubled while it is
+    below N and MAX_SLAB: the JAX slab at a 4096-vertex core, kept only to
+    bound the expanded memory), each slab's transposed expansion Xsᵀ
+    [cpad, slab] giving Gram += Xsᵀ Xs by torch._int_mm on int8 0/1
+    operands with int32 output. That is exact with no f32 bound: a Gram
+    entry counts rows, <= N < 2^31. (bf16 torch.matmul would return bf16
+    and lose counts above 256.) The core adjacency mask B is X's expansion
+    of the core rows, read in place from the table.
 
     torch._int_mm's rules (aten's _int_mm_out_cuda checks, and
     chip_smoke.py's int_mm_rules on the H100, torch 2.11 + CUDA 12.8):
     A [m, k] and B [k, n] int8 with m > 16 and k, n multiples of 8, int32
     out; each operand may be row- or column-major, and all four layouts
     gave the exact product. Here m = n = cpad = words * 32 (a multiple of
-    256) and k = slab, a multiple of tile; A is the transposed expansion
-    [cpad, slab] built row-major and B is its transpose view."""
+    256) and k = slab, a multiple of tile; A is X's transposed output
+    [cpad, slab] and B is its transpose view, so the reduction dim is
+    contiguous in both (prof_breakdown times this against X's row-major
+    output passed as Xs.t(), Xs)."""
     v = table.shape[0]
     cpad = words * 32
     n = spoke.shape[0]
@@ -252,13 +253,10 @@ def _spoke_gemm_partials(table: torch.Tensor, spoke: torch.Tensor, *,
     gram = torch.zeros((cpad, cpad), dtype=torch.int32, device=spoke.device)
     for r0 in range(0, n, slab):
         rows = spoke[r0:r0 + slab]
-        if rows.shape[0] < slab:              # zero rows add nothing
-            rows = torch.nn.functional.pad(rows, (0, 0, 0,
-                                                  slab - rows.shape[0]))
-        xt = _expand_bits(rows, cpad, transpose=True)      # [cpad, slab]
+        xt = expand_bits(rows, n_out=slab, transpose=True)    # [cpad, slab]
         gram += torch._int_mm(xt, xt.t())
     # mask by core adjacency: B[i, j] = bit j of core row i
-    mask = _expand_bits(table[v - c:, :words], cpad, dtype=torch.bool)
+    mask = _expand_bits(table[v - c:, :words], cpad)
     return (gram[:c].to(torch.int64) * mask).sum(dim=1)
 
 

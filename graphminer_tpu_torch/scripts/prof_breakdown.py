@@ -3,13 +3,21 @@
 The port of scripts/prof_breakdown.py. Builds TriangleEngine
 (ops/hubcore.py) on RMAT scale 18, edge factor 16, seed 7, times its two
 halves apart — the tail groups (kernel E, ops/cuda_hubcore.py) and the spoke
-product (torch._int_mm; on its first slab, also the bit expansion and the
-product apart) — and then calibrates the random-row fetch rate of
+product (torch._int_mm; on its first slab, also the bit expansion by kernel
+X in both output layouts and by its plain version, and the product in both
+operand layouts) — and then calibrates the random-row fetch rate of
 kernel D (ops/fetch.py) at the row widths the tail count reads: a 2^18-row
 int32 table of width W ∈ {8, 32, 128, 256}, T ∈ {2^16, 2^19} random indices,
 n_buf = 16. Each D result is held against the plain version, exactly.
 
+With --clique it times the hi part of CliqueKEngine (ops/cliquek.py) on
+the same graph instead: the Gram (X + torch._int_mm) on 1, 2 and 4 CUDA
+streams at k = 4 and 5, and at k = 5 the engine's flat triangle-task list
+against the JAX package's _bucket_tris form of the same tasks (per-edge
+rows of SENTINEL-padded c slots), each held to one hi total.
+
     python -m graphminer_tpu_torch.scripts.prof_breakdown [--device cuda|cpu]
+        [--clique]
 
 Times are medians of CUDA-event timings after warm-up (the host's dispatch
 of a call included), each printed with the least time an H100 could take
@@ -28,9 +36,11 @@ import time
 import torch
 
 from ..device import resolve_device
-from ..types import SENTINEL
+from ..types import SENTINEL, round_up
 from ..io.synth import rmat
 from ..ops import hubcore
+from ..ops.cliquek import HI_STREAMS, CliqueKEngine, _bucket_tris, slab_gram
+from ..ops.cuda_expand import expand_bits, expand_bits_plain
 from ..ops.fetch import fetch_rows_sum, fetch_rows_sum_plain
 from ..utils.profiling import bound_ms, device_ms, time_ms
 
@@ -86,14 +96,124 @@ def tail_bytes(eng) -> int:
         + 8 * len(eng.spec)
 
 
+def spoke_slab(eng, dev) -> dict:
+    """The spoke's parts on its first slab: the bit expansion by kernel X
+    transposed (the engine's form) and row-major, and by X's plain version
+    (the torch ops the spoke ran before X, transposed), each beside its
+    bytes bound; then torch._int_mm on X's transposed output (xt, xt.t())
+    and on its row-major output (x.t(), x), both held to one product."""
+    lay = eng.layout
+    cpad = lay.words * 32
+    slab = eng.spoke[:hubcore.MAX_SLAB]
+    rows = slab.shape[0]
+    out = {"rows": rows}
+    for key, fn in (
+            ("expand_ms", lambda: expand_bits(slab, transpose=True)),
+            ("expand_rows_ms", lambda: expand_bits(slab)),
+            ("expand_plain_ms",
+             lambda: expand_bits_plain(slab, transpose=True))):
+        out[key], _ = time_ms(fn, dev, REPS)
+    xt = expand_bits(slab, transpose=True)
+    x = expand_bits(slab)
+    out["int_mm_ms"], g_t = time_ms(lambda: torch._int_mm(xt, xt.t()), dev,
+                                    REPS)
+    out["int_mm_rows_ms"], g_r = time_ms(lambda: torch._int_mm(x.t(), x),
+                                         dev, REPS)
+    if not torch.equal(g_t, g_r):
+        raise RuntimeError("spoke slab: the two _int_mm layouts disagree")
+    out["expand_bound"] = bound_ms(rows * cpad + slab.numel() * 4)
+    out["int_mm_bound"] = bound_ms(0, 2 * cpad * cpad * rows)
+    print(f"spoke slab of {rows} rows: expand by X transposed "
+          f"{out['expand_ms']:.4f} ms, row-major {out['expand_rows_ms']:.4f}"
+          f" ms, plain (torch ops) {out['expand_plain_ms']:.3f} ms (H100 "
+          f"bound {out['expand_bound'][0]:.4f} ms); _int_mm (xt, xt.t()) "
+          f"{out['int_mm_ms']:.3f} ms, (x.t(), x) {out['int_mm_rows_ms']:.3f}"
+          f" ms (H100 bound {out['int_mm_bound'][0]:.4f} ms)", flush=True)
+    return out
+
+
+def bucket_calls(eng) -> list:
+    """X's calls for the JAX package's form of a k = 5 engine's hi tasks:
+    _bucket_tris groups the flat list into rows of 2-2048 c slots a bucket
+    (an edge's y₂ hi slice and its c ids, SENTINEL padded), and each slot is
+    one expanded row. Slabs of at most eng.slab rows, whole bucket rows, as
+    the JAX package steps them; the row of slot i is i // slots, passed to X
+    as explicit rows."""
+    dev = eng.device
+    tri = torch.stack([eng.tri_rows, eng.tri_cols[:, 0]], 1).cpu().numpy()
+    tab = eng.core[:, eng.words - eng.hi_words:]
+    calls = []
+    for rows, cm, _step, _rt in _bucket_tris(eng.y2hi.cpu().numpy(), tri):
+        tcl = cm.shape[1]
+        rows = torch.from_numpy(rows).to(dev)
+        cols = torch.from_numpy(cm).to(dev).reshape(-1, 1)
+        r = torch.arange(cols.shape[0], dtype=torch.int32, device=dev) // tcl
+        step = max(1, eng.slab // tcl) * tcl
+        for s in range(0, cols.shape[0], step):
+            n = min(step, cols.shape[0] - s)
+            calls.append((rows, dict(r=r[s:s + n], tab=tab,
+                                     cols=cols[s:s + n],
+                                     n_out=round_up(n, 32), transpose=True)))
+    return calls
+
+
+def clique_hi(dev) -> dict:
+    """CliqueKEngine's hi part at k = 4 and 5, in turns: the Gram on 1, 2
+    and 4 streams, and at k = 5 the flat list against the bucket form (both
+    on HI_STREAMS streams); every reading held to the engine's hi total."""
+    g = rmat(SCALE, 16, seed=7)
+    cuda = dev.type == "cuda"
+    res = {}
+    for k in (4, 5):
+        eng = CliqueKEngine(g, k, device=dev)
+        want = int(eng.hi_partials().sum())
+        streams = {n: ([torch.cuda.Stream(dev) for _ in range(n)]
+                       if cuda and n > 1 else []) for n in (1, 2, 4)}
+
+        def hi_of(slabs, st):
+            gram = slab_gram(slabs, eng.hi_dim, dev, st)
+            total = int((gram.to(torch.int64) * eng.bhh).sum())
+            if total != want:
+                raise RuntimeError(f"clique k={k}: hi {total} != {want}")
+
+        def xs(calls):
+            return (expand_bits(b, **kw) for b, kw in calls)
+
+        forms = {f"flat, {n} streams": (
+            lambda n=n: hi_of(eng._slabs(), streams[n])) for n in (1, 2, 4)}
+        rows = {"flat": sum(eng.slab_tasks)}
+        if k == 5:
+            calls = bucket_calls(eng)
+            rows["buckets"] = sum(kw["n_out"] for _, kw in calls)
+            forms[f"buckets, {HI_STREAMS} streams"] = (
+                lambda: hi_of(xs(calls), streams[HI_STREAMS]))
+        got = {key: [] for key in forms}
+        for key in list(forms) + list(forms)[::-1]:         # in turns
+            got[key].append(time_ms(forms[key], dev, REPS)[0])
+        res[k] = {"hi": want, "n_slabs": eng.n_slabs, "expanded_rows": rows,
+                  "ms": got}
+        print(f"clique k={k} hi part {want} ({eng.n_slabs} slabs, expanded "
+              f"rows {rows}), ms in turns: " + "; ".join(
+                  f"{key} {v[0]:.3f} / {v[1]:.3f}" for key, v in got.items()),
+              flush=True)
+        del eng
+        if cuda:
+            torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--clique", action="store_true",
+                    help="time CliqueKEngine's hi part instead")
     a = ap.parse_args(argv)
     dev = resolve_device(a.device)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"device: {kind}", flush=True)
+    if a.clique:
+        return {"device": kind, "clique": clique_hi(dev)}
     t0 = time.perf_counter()
     g = rmat(SCALE, 16, seed=7)
     eng = hubcore.TriangleEngine(g, device=dev)
@@ -128,21 +248,7 @@ def main(argv=None) -> dict:
           f"{res['spoke']['bound'][0]:.4f} ms, {ops:.3e} int8 ops)",
           flush=True)
     if lay.core_size:
-        # its parts on the first slab: the bit expansion, then the product
-        slab = eng.spoke[:hubcore.MAX_SLAB]
-        exp_ms, xt = time_ms(
-            lambda: hubcore._expand_bits(slab, cpad, transpose=True), dev,
-            REPS)
-        mm_ms, _ = time_ms(lambda: torch._int_mm(xt, xt.t()), dev, REPS)
-        slab_ops = 2 * cpad * cpad * xt.shape[1]
-        res["spoke"]["slab"] = {"rows": xt.shape[1], "expand_ms": exp_ms,
-                                "int_mm_ms": mm_ms,
-                                "int_mm_bound": bound_ms(0, slab_ops)}
-        print(f"spoke slab of {xt.shape[1]} rows: expand {exp_ms:.3f} ms, "
-              f"_int_mm {mm_ms:.3f} ms (H100 bound "
-              f"{res['spoke']['slab']['int_mm_bound'][0]:.4f} ms)",
-              flush=True)
-        del xt
+        res["spoke"]["slab"] = spoke_slab(eng, dev)
 
     # --- kernel D row-fetch calibration ---
     res["fetch"] = []

@@ -49,7 +49,7 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert prof["counters"]["edge_tasks"] > 0
     assert set(prof["kernel_launches"]) == {
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
-        "hub_tail_count"}
+        "hub_tail_count", "expand_bits", "lo_popcount"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):
@@ -68,7 +68,7 @@ def test_tc_without_card_exits_naming_cuda(prefix):
 
 
 @pytest.mark.parametrize("args", [
-    ("tc", "--partition", "2"), ("clique", "4", "--fast"),
+    ("tc", "--partition", "2"), ("clique", "6", "--fast"),
     ("sgl", "diamond", "--fast"), ("motif", "3"),
     ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
 def test_unported_exits_naming_roadmap(prefix, args):
@@ -88,6 +88,20 @@ def test_generic_verbs_cpu_agree_with_jax(small, capsys, args):
     assert ours["total"] == ref["total"] > 0
     for key in ("k", "pattern"):
         assert ours.get(key) == ref.get(key)
+    prof = ours["profile"]
+    assert prof["device"] == "cpu"
+    assert prof["counters"]["edge_tasks"] > 0
+    assert set(prof["kernel_launches"].values()) == {0}
+
+
+@pytest.mark.parametrize("k", ["4", "5"])
+def test_clique_fast_cpu_agrees_with_jax(small, capsys, k):
+    """clique 4|5 --fast runs CliqueKEngine (the plain versions of X and L
+    on --cpu) and agrees with the JAX package's fast engine."""
+    ours = run(main, capsys, "clique", small, k, "--fast", "--cpu",
+               "--profile")
+    ref = run(jmain, capsys, "clique", small, k, "--fast", "--cpu")
+    assert ours["total"] == ref["total"] > 0 and ours["k"] == int(k)
     prof = ours["profile"]
     assert prof["device"] == "cpu"
     assert prof["counters"]["edge_tasks"] > 0

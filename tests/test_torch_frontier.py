@@ -151,9 +151,13 @@ def test_explicit_tasks_and_k2(rand_graphs):
 def test_workload_routes(rand_graphs, tmp_path):
     g = port_graphs(rand_graphs)[0]
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        clique_count(g, 4, fast=True, device="cpu")
+        clique_count(g, 6, fast=True, device="cpu")
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        clique_count(g.orientation(), 4, fast=True, device="cpu")
+        clique_count(g.orientation(), 6, fast=True, device="cpu")
+    for k in (4, 5):        # the hi/lo engine; on a DAG the frontier
+        assert clique_count(g, k, fast=True, device="cpu") == \
+            clique_count(g.orientation(), k, fast=True, device="cpu") == \
+            oracle.k_cliques(g, k)
     for name in ("diamond", "rectangle", "house"):
         with pytest.raises(SystemExit, match="ROADMAP.md"):
             sgl_count(g, name, fast=True, device="cpu")

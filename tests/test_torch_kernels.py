@@ -1,5 +1,5 @@
-"""Kernels A-E, m3, m3b and R against their plain PyTorch versions on a
-CUDA card, A, B, C and E also as one grouped launch over many buckets.
+"""Kernels A-E, m3, m3b, R, X and L against their plain PyTorch versions
+on a CUDA card, A, B, C and E also as one grouped launch over many buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from graphminer_tpu_torch.io.synth import rmat
-from graphminer_tpu_torch.ops import (cuda_check, cuda_hubcore, cuda_ring,
+from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
+                                      cuda_expand, cuda_hubcore, cuda_ring,
                                       cuda_stream, cuda_window, fetch)
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
@@ -412,3 +413,100 @@ def test_generic_tc_on_card(dev, backend):
     from graphminer_tpu_torch.workloads.triangle import triangle_count
     g = rmat(12, 16, seed=7)
     assert triangle_count(g, backend=backend, device=dev) == 482_181
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("hw,ld,n", [(1, 1, 37), (2, 8, 100), (16, 24, 1000),
+                                     (32, 32, 64), (128, 136, 333)])
+def test_expand_bits(dev, hw, ld, n, transpose):
+    """Plain mode on a strided slice, n no multiple of 8, bit-31 words,
+    n_out padding; one launch a call."""
+    rng = np.random.default_rng(hw + ld)
+    table = torch.from_numpy(words(rng, n, ld)).to(dev)
+    view = table[:, ld - hw:]
+    n_out = -(-(n + 5) // 32) * 32
+    before = cuda_expand.expand_bits.launches
+    got = cuda_expand.expand_bits(view, n_out=n_out, transpose=transpose)
+    assert cuda_expand.expand_bits.launches == before + 1
+    want = cuda_expand.expand_bits_plain(view, n_out=n_out,
+                                         transpose=transpose)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 6])
+def test_expand_bits_gathered(dev, depth, transpose):
+    """Gathered mode, explicit rows and rows by task, with SENTINEL and
+    out-of-range ids."""
+    rng = np.random.default_rng(depth)
+    hw, nb, nt, n = 16, 300, 700, 2000
+    base = torch.from_numpy(words(rng, nb, hw + 16)).to(dev)[:, 16:]
+    tab = torch.from_numpy(words(rng, nt, hw)).to(dev)
+    cols = rng.integers(-2, nt + 2, (n, depth)).astype(np.int32)
+    if depth:
+        cols[::9, 0] = SENTINEL
+    r = rng.integers(-2, nb + 2, n).astype(np.int32)
+    r[::13] = SENTINEL
+    cols, r = torch.from_numpy(cols).to(dev), torch.from_numpy(r).to(dev)
+    for kw in (dict(r=r), {}):
+        args = dict(tab=tab, cols=cols, n_out=2016, transpose=transpose,
+                    **kw)
+        before = cuda_expand.expand_bits.launches
+        got = cuda_expand.expand_bits(base, **args)
+        assert cuda_expand.expand_bits.launches == before + 1
+        assert torch.equal(got, cuda_expand.expand_bits_plain(base, **args))
+
+
+@pytest.mark.parametrize("nrow", [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("words_", [8, 128])
+def test_lo_popcount(dev, nrow, words_):
+    rng = np.random.default_rng(nrow * words_)
+    v, c, n = 3000, 900, 20000
+    bm = torch.from_numpy(words(rng, v, words_)).to(dev)
+    core = bm[v - c:]
+    cols = np.concatenate([rng.integers(-1, v + 1, (n, 2)),
+                           rng.integers(-2, c + 2, (n, nrow - 2))], axis=1
+                          ).astype(np.int32)
+    cols[-100:] = SENTINEL
+    cols = torch.from_numpy(cols).to(dev)
+    before = cuda_cliquek.lo_popcount.launches
+    got = cuda_cliquek.lo_popcount(bm, core, cols)
+    assert cuda_cliquek.lo_popcount.launches == before + 1
+    assert int(got.sum()) == int(cuda_cliquek.lo_popcount_plain(
+        bm, core, cols).sum()) > 0
+
+
+def test_lo_popcount_no_tasks(dev):
+    bm = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+    before = cuda_cliquek.lo_popcount.launches
+    got = cuda_cliquek.lo_popcount(
+        bm, bm[32:], torch.zeros((0, 4), dtype=torch.int32, device=dev))
+    assert cuda_cliquek.lo_popcount.launches == before
+    assert int(got.sum()) == 0
+
+
+@pytest.mark.parametrize("k", [4, 5])
+def test_cliquek_engine_on_card(dev, k):
+    """rmat12 with a small core: a real lo population and tail; the card's
+    count equals the CPU's, with L launched once and X once a slab."""
+    from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    g = rmat(12, 8, seed=23)
+    eng = CliqueKEngine(g, k, core=256, hi=64, slab=4096, device=dev)
+    want = CliqueKEngine(g, k, core=256, hi=64, device="cpu").count()
+    assert eng.n_lo > 0 and eng.n_slabs > 1
+    x, lo = cuda_expand.expand_bits.launches, cuda_cliquek.lo_popcount.launches
+    assert eng.count() == want
+    assert (cuda_expand.expand_bits.launches - x,
+            cuda_cliquek.lo_popcount.launches - lo) == (eng.n_slabs, 1)
+
+
+def test_hub_core_spoke_on_x(dev):
+    """The hub-core count with the spoke expanded by X: one X launch a slab
+    and one for the core mask."""
+    g = rmat(12, 16, seed=7)
+    eng = TriangleEngine(g, core=1024, device=dev)
+    before = cuda_expand.expand_bits.launches
+    assert eng.count() == 482_181
+    assert cuda_expand.expand_bits.launches > before
+    assert eng.count_core() == \
+        TriangleEngine(g, core=1024, device="cpu").count_core()

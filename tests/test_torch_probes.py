@@ -43,6 +43,25 @@ def test_prof_breakdown_on_cpu(monkeypatch, capsys):
     assert "tail:" in out and "spoke:" in out and "fetch w= 256" in out
 
 
+def test_prof_breakdown_clique_on_cpu(monkeypatch, capsys):
+    """--clique at scale 10: every form of the hi part (the flat list on 1,
+    2 and 4 streams, the bucket form at k = 5) reaches the engine's hi
+    total (the script raises otherwise), and the buckets expand more rows
+    than the flat list, which expands each triangle task once."""
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    monkeypatch.setattr(prof_breakdown, "SCALE", 10)
+    monkeypatch.setattr(prof_breakdown, "REPS", 1)
+    res = prof_breakdown.main(["--device", "cpu", "--clique"])["clique"]
+    eng = CliqueKEngine(rmat(10, 16, seed=7), 5, device="cpu")
+    rows = res[5]["expanded_rows"]
+    assert rows["flat"] == -(-eng.n_tri // 32) * 32 < rows["buckets"]
+    assert res[5]["hi"] == int(eng.hi_partials().sum()) > 0
+    assert sorted(res[4]["ms"]) == [f"flat, {n} streams" for n in (1, 2, 4)]
+    assert all(len(v) == 2 for k in (4, 5) for v in res[k]["ms"].values())
+    assert "clique k=5 hi part" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("scale,core", [(10, 64), (10, 32), (12, 64)])
 def test_tail_bytes_counts_each_named_row_prefix_once(scale, core):
     """E's bound bytes against a per-task walk: each row a real task names,
