@@ -13,29 +13,33 @@ fails (non-zero exit, no result line) when any phase fails:
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
-  3. holds kernels A, B, C, D, E, m3, m3b, R, X and L against their plain
-     PyTorch versions on the card, exactly: random inputs over every width
-     class, A, B, C and E also as one grouped launch over random
+  3. holds kernels A, B, C, D, E, m3, m3b, R, X, L and G against their
+     plain PyTorch versions on the card, exactly: random inputs over every
+     width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
-     L at 3-8 rows a task and with no task (no launch), then the real
-     buckets and tail groups of rmat14 builds, one by one and grouped
-     (counts 2,860,691, also through TriangleEngine), and X's slabs, B_hh
-     and L's lo tasks of the rmat14 CliqueKEngine at k = 4 and 5;
+     L over run tables at 2-8 rows a task (random tasks, and runs of 1-5000
+     tasks) and with no task (no launch), G at 4-128 words and depth 0-6
+     with a mask that is not triangular, then the real buckets and tail
+     groups of rmat14 builds, one by one and grouped (counts 2,860,691,
+     also through TriangleEngine), G on the rmat14 spoke, and X's slabs and
+     B_hh, G's hi tasks and L's lo tasks of the rmat14 CliqueKEngine at
+     k = 4 and 5;
   4. runs `python -m graphminer_tpu_torch tc <rmat18> --fast --json
      --profile` and checks its count and that kernel A launched once;
   5. runs the ring engine on the same graph and checks its count and that
      kernels B and C launched once each;
   6. runs TriangleEngine on the same graph (count, tail + core split,
-     kernel E launched once, the spoke expanded by kernel X, which is held
-     to its plain version on the spoke's first slab and core mask), the
+     kernels E and G launched once each and X never; X is held to its
+     plain version on the slab form's first spoke slab and core mask), the
      port's prof_breakdown at rmat18 (kernels E and D) and prof_window at
      its defaults (m1 = m2 = m3 = m3b), in process;
   7. times every kernel with CUDA events (median of 11 after warm-up),
      kernel and plain version side by side, each beside the least time an
      H100 could take for the same work (A, B, C and E as the engines'
      single launch, A also over groups of the rmat18 buckets; B also with
-     the bytes it reads past L1), the spoke product (torch._int_mm) against
-     its operations bound, the device-busy share of stream, ring and
+     the bytes it reads past L1), the spoke by G in turns with the slab
+     form it replaced (X + torch._int_mm) beside G's bounds, the
+     device-busy share of stream, ring and
      hub-core counts from torch.profiler; the device time alone
      (torch.profiler) of D at each of prof_breakdown's shapes, of m3 and
      m3b, and of R and torch.mul,
@@ -47,8 +51,8 @@ fails (non-zero exit, no result line) when any phase fails:
      of the DAG edges, layout bytes, device count time and busy share;
   9. runs `python -m graphminer_tpu_torch` without --cpu: tc on rmat18,
      clique 4 and 5 on rmat14 (36,628,817 and 387,027,732) generic and
-     with --fast (CliqueKEngine: X launched, L once where there are lo
-     tasks), sgl diamond and rectangle on rmat12 (57,515,371 and
+     with --fast (CliqueKEngine: X once at build, G once, L once where
+     there are lo tasks), sgl diamond and rectangle on rmat12 (57,515,371 and
      52,988,519), each against its golden, with its run_s;
  10. holds the frontier's map engine against its compact engine on the
      card at rmat10, cliques k = 3-5 and the four SGL plans;
@@ -59,11 +63,13 @@ fails (non-zero exit, no result line) when any phase fails:
      the estimate against the built bytes, its launches, the peak device
      memory and the device count time;
  13. builds CliqueKEngine on rmat18 at k = 4, then at k = 5, and checks each
-     count (2,280,263,816 and 55,374,832,965), that X launched once a slab
-     and L once, and prints prep time, task counts, the device count split
-     hi / lo, X's, torch._int_mm's and L's device time beside their bounds
-     and the peak device memory; then holds X to its plain version on the
-     first and the last slab of each count and L on each lo task list.
+     build (X once, for B_hh) and count (2,280,263,816 and 55,374,832,965;
+     G and L once each, X never), and prints prep time, task counts, the
+     lo run table's runs, the device count split hi / lo, G in turns with
+     the slab form it replaced beside G's bounds, X's and L's device time
+     beside their bounds and the peak device memory; then holds G to its
+     plain version on each count's hi tasks, X on the first and the last
+     slab of each count's slab form and L on each lo run table.
 
 Each path of phases 2, 4-6, 8, 12 and 13 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
@@ -130,10 +136,16 @@ KERNELS = {
     "lo_popcount": {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/lo_popcount.cu",
-        "replaces": "graphminer_tpu/ops/cliquek.py:311"},
+        "replaces": "graphminer_tpu/ops/cliquek.py:312"},
+    "bit_gram": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/bit_gram.cu",
+        "replaces": "graphminer_tpu/ops/cliquek.py:223"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
+#: kernel L's first design at rmat18, ms a count (PERF.md, PR 7)
+PR7_L_MS = {4: 0.1367, 5: 1.5169}
 MAX_ERR = {k: 0 for k in KERNELS}
 #: window_count's rows_per_step of kernels m3 and m3b
 WINDOW_ROWS = {"window_count_m3": 1, "window_count_m3b": 8}
@@ -184,9 +196,9 @@ def wrappers():
     """{kernel name: wrapper} for every kernel that counts its launches in
     process (kernel A's count comes from the CLI's own process)."""
     from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
-                                          cuda_expand, cuda_hubcore,
-                                          cuda_ring, cuda_stream, cuda_window,
-                                          fetch)
+                                          cuda_expand, cuda_gram,
+                                          cuda_hubcore, cuda_ring,
+                                          cuda_stream, cuda_window, fetch)
     return {"stream_bucket_count": cuda_stream.stream_bucket_count,
             "ring_phase_c": cuda_ring.ring_phase_c,
             "ring_tail_pairs": cuda_ring.ring_tail_pairs,
@@ -195,7 +207,8 @@ def wrappers():
             "window_count": cuda_window.window_count,
             "times_two": cuda_check.times_two,
             "expand_bits": cuda_expand.expand_bits,
-            "lo_popcount": cuda_cliquek.lo_popcount}
+            "lo_popcount": cuda_cliquek.lo_popcount,
+            "bit_gram": cuda_gram.bit_gram}
 
 
 def reset_counts():
@@ -340,6 +353,7 @@ def kernel_checks_random():
             n_cases += 1
     n_cases += kernel_checks_random_slice2(rng, t)
     n_cases += kernel_checks_random_x_l(rng, t)
+    n_cases += kernel_checks_random_g(rng, t)
     n_cases += grouped_checks_random(rng, t)
     n_cases += grouped_checks_random_be(rng, t)
     torch.cuda.synchronize()
@@ -526,8 +540,9 @@ def kernel_checks_random_x_l(rng, t):
     on strided slices (ld > hw) at hw 1, 2, 16, 32 and 128 with n no
     multiple of 8 and padded n_out, and gathered mode at depth 0-4 (rows
     explicit and by task) with SENTINEL and out-of-range ids, both
-    output layouts; L: nrow 3-8 with SENTINEL rows and ids outside the
-    tables, and an empty task list, which must launch nothing."""
+    output layouts; L: run tables at nrow 2-8 of random tasks (SENTINEL
+    rows, ids outside the tables) and of runs of 1-5000 tasks (one with an
+    all-zero AND), and an empty table, which must launch nothing."""
     from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
     X, xp = cuda_expand.expand_bits, cuda_expand.expand_bits_plain
     n_cases = 0
@@ -557,67 +572,140 @@ def kernel_checks_random_x_l(rng, t):
                              f"{sorted(kw)} transpose={tr}")
                 n_cases += 1
     v, c = 20000, 4096
+    L, Lp = cuda_cliquek.lo_popcount, cuda_cliquek.lo_popcount_plain
     for words in (8, 128):
         bm = t(_words(rng, (v, words)))
         core = bm[v - c:]
-        for nrow in range(3, 9):
+        for nrow in range(2, 9):
+            # random tasks (runs of one task, mostly), then runs of 1-5000
+            # tasks (long runs span many groups) with an all-zero AND
             n = 100000 if words == 8 else 30000
+            vc = 2 if nrow > 2 else 1
             cols = np.concatenate([rng.integers(-1, v + 1, (n, 2)),
                                    rng.integers(-2, c + 2, (n, nrow - 2))],
                                   axis=1).astype(np.int32)
             cols[-4096:] = SENTINEL
-            cols = t(cols)
-            compare("lo_popcount",
-                    cuda_cliquek.lo_popcount(bm, core, cols).sum(),
-                    cuda_cliquek.lo_popcount_plain(bm, core, cols).sum(),
+            runs = cuda_cliquek.lo_runs(cols, vc, device="cuda")
+            compare("lo_popcount", L(bm, core, runs).sum(),
+                    Lp(bm, core, runs).sum(),
                     f"random words={words} nrow={nrow}")
-            n_cases += 1
-    before = cuda_cliquek.lo_popcount.launches
-    got = cuda_cliquek.lo_popcount(bm, core, cols[:0])
-    check(cuda_cliquek.lo_popcount.launches == before and int(got.sum()) == 0,
+            lens = rng.choice([1, 1, 2, 3, 17, 130, 700, 5000], 200)
+            first = np.concatenate([rng.integers(0, v, (lens.size, 2)),
+                                    rng.integers(0, c, (lens.size,
+                                                        nrow - 2))], axis=1)
+            cols = np.repeat(first, lens, axis=0)
+            lim = v if vc < 2 else c
+            cols[:, vc] = rng.integers(-1, lim + 1, cols.shape[0])
+            cols[:lens[0], 0] = v - c            # a row with no bit...
+            bm[v - c] = 0                        # ...so z == 0 for a run
+            runs = cuda_cliquek.lo_runs(cols.astype(np.int32), vc,
+                                        device="cuda")
+            compare("lo_popcount", L(bm, core, runs).sum(),
+                    Lp(bm, core, runs).sum(),
+                    f"runs of 1-5000 words={words} nrow={nrow} "
+                    f"({runs.n_runs} runs, {runs.n} tasks)")
+            n_cases += 2
+    before = L.launches
+    got = L(bm, core, cuda_cliquek.lo_runs(np.zeros((0, 4), np.int32),
+                                           device="cuda"))
+    check(L.launches == before and int(got.sum()) == 0,
           "lo_popcount with no tasks launched or counted")
     return n_cases + 1
 
 
+def kernel_checks_random_g(rng, t):
+    """G on random inputs; returns the number of cases: strided rows of hw
+    4, 16, 32 and 128 words (every bit 31 in play), gathered at depth 0-6
+    (rows explicit, some SENTINEL or outside base, c ids some outside tab)
+    and plain, n no multiple of a K-range, a random mask that is not
+    triangular with an empty tile row, and hw 1, 2, 5 (4-byte copies)."""
+    from graphminer_tpu_torch.ops import cuda_gram
+    G, Gp = cuda_gram.bit_gram, cuda_gram.bit_gram_plain
+    n_cases = 0
+    for hw in (4, 16, 32, 128):
+        nb, nt = 5000, 3000
+        n = 200_003 if hw <= 32 else 20_011
+        base = t(_words(rng, (nb, hw + 4)))[:, 4:]
+        tab = t(_words(rng, (nt, hw + 8)))[:, :hw]
+        nm = 32 * hw - 5
+        mask_np = _words(rng, (nm, hw + 2)) & _words(rng, (nm, hw + 2))
+        if hw >= 8:
+            mask_np[128:256] = 0
+        mask = t(mask_np)[:, 1:hw + 1]
+        plan = cuda_gram.plan_gram(mask)
+        for depth in range(7):
+            r = rng.integers(-2, nb + 2, n).astype(np.int32)
+            r[::29] = SENTINEL
+            kw = dict(r=t(r))
+            if depth:
+                cols = rng.integers(-2, nt + 2, (n, depth)).astype(np.int32)
+                cols[::31, depth - 1] = SENTINEL
+                kw.update(tab=tab, cols=t(cols))
+            compare("bit_gram", G(base, mask, plan=plan, **kw),
+                    Gp(base, mask, **kw),
+                    f"random hw={hw} depth={depth} n={n} "
+                    f"({plan.n_tiles} tiles)")
+            n_cases += 1
+        compare("bit_gram", G(base, mask, plan=plan), Gp(base, mask),
+                f"random hw={hw} plain rows n={nb}")
+        n_cases += 1
+    for hw in (1, 2, 5):
+        base, mask = t(_words(rng, (9001, hw))), t(_words(rng, (32 * hw, hw)))
+        compare("bit_gram", G(base, mask), Gp(base, mask),
+                f"random hw={hw} (4-byte copies)")
+        n_cases += 1
+    before = G.launches
+    got = G(base[:0], mask)
+    check(G.launches == before and int(got.sum()) == 0,
+          "bit_gram with no tasks launched or counted")
+    return n_cases + 1
+
+
 def kernel_checks_cliquek14():
-    """X and L on the rmat14 CliqueKEngine inputs at k = 4 and 5: every
-    slab X expands in a count and B_hh against the plain version, and L on
-    the lo tasks; then the count against phase 9's generic goldens.
-    Returns {k: lo tasks}, which phase 9's `clique k --fast` runs share."""
+    """X, G and L on the rmat14 CliqueKEngine inputs at k = 4 and 5: X on
+    B_hh and every slab of the slab form (ops/slab_form.py), G on the hi
+    tasks and L on the lo
+    tasks' run table, each against its plain version; then the count
+    against phase 9's generic goldens. Returns {k: lo tasks}, which phase
+    9's `clique k --fast` runs share."""
     from graphminer_tpu_torch.io.synth import rmat
-    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
+    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand, cuda_gram
     from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    from graphminer_tpu_torch.ops.slab_form import CliqueSlab
     g = rmat(14, 16, seed=7)
     n_lo = {}
     for k, want in ((4, 36_628_817), (5, 387_027_732)):
         eng = CliqueKEngine(g, k, device="cuda")
-        hd, hw = eng.hi_dim, eng.hi_words
-        lo_cut = eng.words * 32 - hd
-        view = eng.core[lo_cut:, eng.words - hw:]
-        compare_rows("expand_bits", eng.bhh, cuda_expand.expand_bits_plain(
-            view, n_out=hd), f"rmat14 k={k} B_hh")
+        yard = CliqueSlab(eng)
+        compare_rows("expand_bits", yard.bhh, cuda_expand.expand_bits_plain(
+            eng.hi_mask, n_out=eng.hi_dim), f"rmat14 k={k} B_hh")
         n_slabs = 0
-        for base, kw in eng.slab_args():
+        for base, kw in yard.slab_args():
             compare_rows("expand_bits", cuda_expand.expand_bits(base, **kw),
                          cuda_expand.expand_bits_plain(base, **kw),
                          f"rmat14 k={k} slab {n_slabs} ({sorted(kw)})")
             n_slabs += 1
-        check(n_slabs == eng.n_slabs, f"rmat14 k={k}: {n_slabs} slabs != "
-              f"{eng.n_slabs}")
-        if eng.lo_cols is not None:
+        check(n_slabs == yard.n_slabs, f"rmat14 k={k}: {n_slabs} slabs != "
+              f"{yard.n_slabs}")
+        base, kw = eng.hi_args()
+        compare("bit_gram", eng.hi_partials(),
+                cuda_gram.bit_gram_plain(base, eng.hi_mask, **kw),
+                f"rmat14 k={k} hi tasks ({eng.gram_plan.n_tiles} tiles)")
+        if eng.lo_runs is not None:
             compare("lo_popcount",
                     cuda_cliquek.lo_popcount(eng.bm, eng.core,
-                                             eng.lo_cols).sum(),
+                                             eng.lo_runs).sum(),
                     cuda_cliquek.lo_popcount_plain(eng.bm, eng.core,
-                                                   eng.lo_cols).sum(),
+                                                   eng.lo_runs).sum(),
                     f"rmat14 k={k} lo tasks")
         got = eng.count()
         check(got == want, f"rmat14 CliqueKEngine k={k}: {got} != {want}")
         say(f"rmat14 CliqueKEngine k={k}: X == plain on B_hh and {n_slabs} "
-            f"slabs, L == plain on {eng.n_lo} lo tasks; count {got} "
-            f"(n_core_edges {eng.n_core_edges}, n_tri {eng.n_tri})")
+            f"slabs, G == plain on the hi tasks, L == plain on {eng.n_lo} lo "
+            f"tasks; count {got} (n_core_edges {eng.n_core_edges}, n_tri "
+            f"{eng.n_tri})")
         n_lo[k] = eng.n_lo
-        del eng
+        del eng, yard
     torch.cuda.empty_cache()
     return n_lo
 
@@ -690,8 +778,14 @@ def kernel_checks_rmat14():
           f"rmat14 counts stream {s} ring {r} hub-core {h} != {GOLDEN[14]}")
     ht, hc = he.count_tail(), he.count_core()
     check(ht + hc == h, f"rmat14 hub-core tail {ht} + core {hc} != {h}")
+    from graphminer_tpu_torch.ops import cuda_gram
+    compare("bit_gram", he.core_partials(),
+            cuda_gram.bit_gram_plain(he.spoke, he.core_mask)[
+                :he.layout.core_size],
+            f"rmat14 spoke ({he.spoke.shape[0]} rows, "
+            f"{he.gram_plan.n_tiles} tiles)")
     say(f"rmat14: kernel == plain on every bucket and tail group {sizes} "
-        f"and as grouped launches of A, B, C and E; "
+        f"and as grouped launches of A, B, C and E, G on the spoke; "
         f"stream = ring = hub-core = {s} (tail {ht} + core {hc})")
 
 
@@ -1060,11 +1154,11 @@ def run_triangle_engine(g):
     eng = TriangleEngine(g, device="cuda")
     t_build = time.perf_counter() - t0
     total, launches = run_path("TriangleEngine rmat18 count", eng.count,
-                               ["hub_tail_count", "expand_bits"])
-    launches.pop("expand_bits")         # X's launches are phase 13's
-    check(launches["hub_tail_count"] == 1,
-          f"kernel E launched {launches['hub_tail_count']} times by the "
-          "hub-core count, not once")
+                               ["hub_tail_count", "bit_gram"])
+    x = read_counts()["expand_bits"]
+    check(launches == {"hub_tail_count": 1, "bit_gram": 1} and x == 0,
+          f"the hub-core count launched E and G {launches} and X {x} "
+          "times, not once, once and never")
     tail, core = eng.count_tail(), eng.count_core()
     say(f"TriangleEngine rmat18: count={total} (tail {tail} + core {core}) "
         f"build_s={t_build:.1f} groups={eng.spec} "
@@ -1078,7 +1172,8 @@ def run_prof_breakdown():
     from graphminer_tpu_torch.scripts import prof_breakdown
     out, launches = run_path("prof_breakdown rmat18",
                              lambda: prof_breakdown.main([]),
-                             ["hub_tail_count", "fetch_rows_sum"])
+                             ["hub_tail_count", "fetch_rows_sum",
+                              "bit_gram", "expand_bits"])
     total = out["tail"]["count"] + out["spoke"]["count"]
     check(total == GOLDEN[18], f"prof_breakdown tail + spoke {total}")
     check(len(out["fetch"]) == 8, f"prof_breakdown ran {len(out['fetch'])} "
@@ -1173,15 +1268,31 @@ def timing_slice(hub_eng, pb, pw):
                  f"rmat18 spoke core mask [{lay.core_size}, {cpad}] "
                  f"(row-major, rows of the {lay.table.shape[1]}-word table "
                  "in place)")
-    s_ms, spoke = time_ms(lambda: hub_eng.core_partials().sum())
-    ops = 2 * cpad * cpad * hub_eng.spoke.shape[0]
-    sb_ms, sb_by = bound_ms(hub_eng.spoke.numel() * 4, ops)
-    res["spoke"] = dict(ms=s_ms, bound_ms=sb_ms, bound_by=sb_by, ops=ops)
-    say(f"[{CARD}] spoke product (X + torch._int_mm, "
-        f"{hub_eng.spoke.shape[0]} rows, Gram == f32 Gram on slab 1): "
-        f"{s_ms:.3f} ms (with the torch expansion before kernel X: "
-        f"25.668 ms on an H100 80GB HBM3, 700 W), bound "
-        f"{sb_ms:.4f} ms ({sb_by}, {ops:.4e} int8 ops); count {int(spoke)}")
+    # the spoke by kernel G: against its plain version, then in turns with
+    # the slab form it replaced (X + torch._int_mm, the yardstick)
+    from graphminer_tpu_torch.ops import cuda_gram
+    from graphminer_tpu_torch.utils.profiling import gram_bounds
+    compare("bit_gram", hub_eng.core_partials(),
+            cuda_gram.bit_gram_plain(hub_eng.spoke, hub_eng.core_mask)[
+                :lay.core_size],
+            f"rmat18 spoke ({hub_eng.spoke.shape[0]} rows)")
+    s_ms, slab_ms, spoke, slab = in_turns(
+        lambda: hub_eng.core_partials().sum(),
+        lambda: hub_eng.core_partials_slab().sum())
+    check(int(spoke) == int(slab), f"spoke by G {int(spoke)} != slab form "
+          f"{int(slab)}")
+    gb = gram_bounds(hub_eng.spoke, hub_eng.core_mask,
+                     hub_eng.gram_plan.n_tiles, cuda_gram.TILE)
+    res["spoke"] = dict(ms=s_ms, slab_ms=slab_ms, bounds=gb)
+    say(f"[{CARD}] spoke product by G ({hub_eng.spoke.shape[0]} rows, "
+        f"{hub_eng.gram_plan.n_tiles} of {(cpad // cuda_gram.TILE) ** 2} "
+        f"tiles, 1 launch): {s_ms:.3f} ms; the slab form (X + "
+        f"torch._int_mm) {slab_ms:.3f} ms in turns (5.077 ms in PR 7's "
+        f"run; with the torch expansion before kernel X: 25.668 ms, both "
+        f"on an H100 80GB HBM3, 700 W); bound {gb['mask'][0]:.4f} ms over "
+        f"the mask's set bits ({gb['mask'][1]}, {gb['ops_mask']:.4e} int8 "
+        f"ops), {gb['tiles'][0]:.4f} ms over the tiles G walks, "
+        f"{gb['full'][0]:.4f} ms over the full Gram; count {int(spoke)}")
     e_ms, total = time_ms(lambda: hub_eng.tail_partials().sum()
                           + hub_eng.core_partials().sum())
     check(int(total) == GOLDEN[18], f"hub-core total {int(total)}")
@@ -1394,8 +1505,9 @@ def run_generic_cli(n_lo14):
     """Phase 9: `python -m graphminer_tpu_torch <verb>` on CUDA, without
     --cpu: the generic set-operation path (setops, DeviceGraph, the frontier
     engine), which launches no kernel of ours, and `clique 4|5 --fast`
-    (CliqueKEngine at its defaults), which must launch X and, when the
-    engine has lo tasks (`n_lo14`, phase 3's rmat14 engines), L once."""
+    (CliqueKEngine at its defaults), which must launch G once, X never
+    and, when the engine has lo tasks (`n_lo14`, phase 3's rmat14
+    engines), L once."""
     t0 = time.perf_counter()
     for scale in sorted({s for s, _, _ in GENERIC_CLI} - {18}):
         write_rmat(scale)
@@ -1421,12 +1533,14 @@ def run_generic_cli(n_lo14):
         check(prof["device"] == "cuda", f"CLI {args} ran on {prof['device']}")
         check(res["total"] == want, f"CLI {args} rmat{scale} total "
               f"{res['total']} != {want}")
-        x_l = [prof["kernel_launches"][k] for k in ("expand_bits",
-                                                     "lo_popcount")]
-        # X: B_hh and each slab; L: once, unless the engine has no lo task
-        check(x_l[0] >= 2 and x_l[1] == int(n_lo14[int(args[1])] > 0)
-              if fast else not any(x_l),
-              f"CLI {args}: launches of X and L {x_l}")
+        x_l_g = [prof["kernel_launches"][k] for k in ("expand_bits",
+                                                       "lo_popcount",
+                                                       "bit_gram")]
+        # X: never (build and count); L: once, unless the engine has no lo
+        # task; G: once
+        check(x_l_g == [0, int(n_lo14[int(args[1])] > 0), 1]
+              if fast else not any(x_l_g),
+              f"CLI {args}: launches of X, L and G {x_l_g}")
         out[" ".join(args)] = res["run_s"]
     say(f"generic CLI phase: {time.perf_counter() - t0:.1f} s")
     return out
@@ -1533,107 +1647,157 @@ def x_bytes(base, kw, out):
 
 def run_clique18(g):
     """Phase 13: CliqueKEngine on rmat18 at k = 4, then (the first freed)
-    at k = 5, each against GOLDEN_CK: prep, the native enumerator, task
-    counts, the count with launches read from counts reset just before it
-    (X once a slab, L once when there are lo tasks), the device count split
-    hi / lo (CUDA events; the tail is the frontier's, counted at build),
-    X's, torch._int_mm's and L's device time beside their bounds, and the
-    peak device memory; then X against its plain version on the first and
-    the last slab of each count, and L on each engine's lo tasks. Returns
-    ({kernel: timing} for X at k = 4's first slab and L at k = 5,
-    {kernel: launches over both counts})."""
-    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand
+    at k = 5, each against GOLDEN_CK: the build with its launches read from
+    counts reset just before it (none of ours: X is the yardstick's),
+    prep, the native enumerator, task counts and the lo run table's runs;
+    the count with its launches read the same way (G once, L once when
+    there are lo tasks, X never), the device count split hi / lo (CUDA
+    events; the tail is the frontier's, counted at build) and the peak
+    device memory of the build and count together (as PR 7 measured it)
+    and of a count alone; G in turns with the slab form it replaced (X +
+    torch._int_mm, ops/slab_form.py, its library_ms) beside G's bounds
+    over the mask's set bits, its tiles and the full Gram, G against its
+    plain version (timed at k = 4), X's and L's time beside their bounds
+    and plain versions; then X against its plain version on the first and
+    the last slab of the slab form and L on each engine's lo tasks.
+    Returns ({kernel: timing} for X at k = 4's first slab, G at k = 4 and
+    L at k = 5, {kernel: launches over the counts})."""
+    from graphminer_tpu_torch.ops import cuda_cliquek, cuda_expand, cuda_gram
     from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
-    from graphminer_tpu_torch.utils.profiling import bound_ms
-    res, launches = {}, {"expand_bits": 0, "lo_popcount": 0}
+    from graphminer_tpu_torch.ops.slab_form import CliqueSlab
+    from graphminer_tpu_torch.utils.profiling import (bound_ms, gram_bounds,
+                                                      time_ms as timed)
+    res = {}
+    launches = {"lo_popcount": 0, "bit_gram": 0}
     for k in (4, 5):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = CliqueKEngine(g, k, device="cuda")
-        torch.cuda.synchronize()
-        say(f"CliqueKEngine rmat18 k={k}: build {time.perf_counter() - t0:.1f}"
-            f" s (prep {eng.prep_s:.1f} s, "
-            f"{'native' if eng.native else 'numpy'} enumerator; tail by the "
-            f"frontier {eng.tail_s:.1f} s, {eng.tail_total} cliques); "
-            f"n_core_edges {eng.n_core_edges} n_tri {eng.n_tri} n_lo "
-            f"{eng.n_lo} of {eng.n_edges} DAG edges; hi {eng.hi_dim}, "
-            f"{eng.n_slabs} slabs of <= {eng.slab} tasks")
-        path = ["expand_bits"] + (["lo_popcount"] if eng.n_lo else [])
+        eng, got = run_path(f"CliqueKEngine rmat18 k={k} build",
+                            lambda: CliqueKEngine(g, k, device="cuda"), [])
+        build_s = time.perf_counter() - t0
+        built = {key: n for key, n in read_counts().items() if n}
+        check(not built, f"the k={k} build launched {built}, not none")
+        runs = eng.lo_runs
+        say(f"CliqueKEngine rmat18 k={k}: build {build_s:.1f} s (prep "
+            f"{eng.prep_s:.1f} s, {'native' if eng.native else 'numpy'} "
+            f"enumerator; tail by the frontier {eng.tail_s:.1f} s, "
+            f"{eng.tail_total} cliques); n_core_edges {eng.n_core_edges} "
+            f"n_tri {eng.n_tri} n_lo {eng.n_lo} of {eng.n_edges} DAG edges; "
+            f"hi {eng.hi_dim}, G over {eng.gram_plan.n_tiles} of "
+            f"{(eng.hi_dim // cuda_gram.TILE) ** 2} tiles; lo run table: "
+            f"{runs.n_runs} runs, {runs.n / runs.n_runs:.3f} tasks a run, "
+            f"{runs.nbytes()} B (the task list {eng.lo_cols.numel() * 4} B)")
+        path = ["bit_gram"] + (["lo_popcount"] if eng.n_lo else [])
         total, got = run_path(f"CliqueKEngine rmat18 k={k} count", eng.count,
                               path)
+        both_peak = torch.cuda.max_memory_allocated()
+        both_reserved = torch.cuda.memory_reserved()
+        x = read_counts()["expand_bits"]
         check(total == GOLDEN_CK[k], f"rmat18 {k}-cliques {total} != "
               f"{GOLDEN_CK[k]}")
-        check(got["expand_bits"] == eng.n_slabs, f"X launched "
-              f"{got['expand_bits']} times over {eng.n_slabs} slabs")
-        check(got.get("lo_popcount", 0) == (1 if eng.n_lo else 0),
-              f"L launched {got.get('lo_popcount')} times")
+        check(got["bit_gram"] == 1 and x == 0 and
+              got.get("lo_popcount", 0) == (1 if eng.n_lo else 0),
+              f"the k={k} count launched {got} and X {x} times, not G and "
+              "L once and X never")
         for key, n in got.items():
             launches[key] += n
-        hi_ms, hi = time_ms(lambda: eng.hi_partials().sum())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        check(eng.count() == total, f"rmat18 k={k}: a second count differs")
+        say(f"CliqueKEngine rmat18 k={k}: build and count together (as PR "
+            f"7 measured them): max_memory_allocated {both_peak} B, "
+            f"memory_reserved {both_reserved} B; a count alone, after "
+            f"empty_cache: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B, memory_reserved "
+            f"{torch.cuda.memory_reserved()} B")
+        yard = CliqueSlab(eng)
         lo_ms, lo = time_ms(lambda: eng.lo_partials().sum())
         all_ms, both = time_ms(lambda: eng.hi_partials().sum()
                                + eng.lo_partials().sum())
         check(int(both) + eng.tail_total == GOLDEN_CK[k],
               f"rmat18 k={k} hi + lo + tail")
-        slabs = list(eng.slab_args())
-        base, kw = slabs[0]
-        x_ms, yt = time_ms(lambda: cuda_expand.expand_bits(base, **kw))
-        x_bound = bound_ms(x_bytes(base, kw, yt))
-        mm_ms, _ = time_ms(lambda: torch._int_mm(yt, yt.t()))
-        mm_bound = bound_ms(0, 2 * eng.hi_dim ** 2 * yt.shape[1])
-        rows_hi = sum(eng.slab_tasks)
-        hi_bound = bound_ms(rows_hi * eng.hi_dim,
-                            2 * eng.hi_dim ** 2 * rows_hi)
+        # G: in turns with the slab form it replaced, beside its bounds
+        g_ms, slab_ms, hi, slab = in_turns(
+            lambda: eng.hi_partials().sum(),
+            lambda: yard.hi_partials().sum())
+        check(int(hi) == int(slab), f"rmat18 k={k}: hi by G {int(hi)} != "
+              f"the slab form's {int(slab)}")
+        base, kw = eng.hi_args()
+        gb = gram_bounds(base, eng.hi_mask, eng.gram_plan.n_tiles,
+                         cuda_gram.TILE, **kw)
+        t1 = time.perf_counter()
+        if k == 4:
+            p_ms, pv = timed(lambda: cuda_gram.bit_gram_plain(
+                base, eng.hi_mask, **kw), "cuda", 1)
+            res["bit_gram"] = dict(ms=g_ms, plain_ms=p_ms,
+                                   bound_ms=gb["mask"][0],
+                                   bound_by=gb["mask"][1],
+                                   library_ms=slab_ms,
+                                   tile_bound_ms=gb["tiles"][0],
+                                   full_gram_bound_ms=gb["full"][0])
+        else:
+            pv = cuda_gram.bit_gram_plain(base, eng.hi_mask, **kw)
+        compare("bit_gram", eng.hi_partials(), pv, f"rmat18 k={k} hi tasks")
+        plain_s = time.perf_counter() - t1
         say(f"[{CARD}] CliqueKEngine rmat18 k={k}: count {total} (hi "
             f"{int(hi)} + lo {int(lo)} + tail {eng.tail_total}); device "
-            f"count {all_ms:.3f} ms (hi {hi_ms:.3f} ms over {eng.n_slabs} "
-            f"slabs of {rows_hi} expanded rows in all, bound "
-            f"{hi_bound[0]:.3f} ms ({hi_bound[1]}); lo {lo_ms:.4f} ms), "
-            f"{eng.n_core_edges / all_ms * 1e3:.4e} core edge tasks/s; first "
-            f"slab [{yt.shape[0]}, {yt.shape[1]}]: "
-            f"X {x_ms:.4f} ms (bound {x_bound[0]:.4f} ms, bytes), _int_mm "
-            f"{mm_ms:.3f} ms (bound {mm_bound[0]:.4f} ms, operations); "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
-            f"memory_reserved {torch.cuda.memory_reserved()} B")
-        del yt
-        # X == plain on the first and the last slab of the count (the last
-        # is the one with padding rows)
+            f"count {all_ms:.3f} ms, {eng.n_core_edges / all_ms * 1e3:.4e} "
+            f"core edge tasks/s; hi part by G {g_ms:.3f} ms (1 launch, "
+            f"{eng.n_tri if k == 5 else eng.n_core_edges} tasks), the slab "
+            f"form {slab_ms:.3f} ms in turns; G's bound "
+            f"{gb['mask'][0]:.3f} ms over the mask's set bits "
+            f"({gb['mask'][1]}, {gb['ops_mask']:.4e} int8 ops), "
+            f"{gb['tiles'][0]:.3f} ms over its {eng.gram_plan.n_tiles} "
+            f"tiles, "
+            f"{gb['full'][0]:.3f} ms over the full Gram; G == plain "
+            f"({plain_s:.1f} s with the plain version); lo {lo_ms:.4f} ms")
+        slabs = list(yard.slab_args())
+        if k == 4:
+            base, kw = slabs[0]
+            kx, px, yt, pv = in_turns(
+                lambda: cuda_expand.expand_bits(base, **kw),
+                lambda: cuda_expand.expand_bits_plain(base, **kw))
+            compare_rows("expand_bits", yt, pv, f"rmat18 k=4 slab 0 of "
+                         f"{len(slabs)} ({sorted(kw)})")
+            xb = bound_ms(x_bytes(base, kw, yt))
+            res["expand_bits"] = dict(ms=kx, plain_ms=px, bound_ms=xb[0],
+                                      bound_by=xb[1], library_ms=None)
+            say(f"[{CARD}] expand_bits, the slab form's first k=4 slab "
+                f"[{yt.shape[0]}, {yt.shape[1]}]: kernel {kx:.4f} ms, plain "
+                f"{px:.3f} ms, bound {xb[0]:.4f} ms ({xb[1]})")
+            del yt, pv
+        # X == plain on the first and the last slab of the slab form (the
+        # last is the one with padding rows)
         for i in sorted({0, len(slabs) - 1}):
             base, kw = slabs[i]
-            if k == 4 and i == 0:
-                kx, px, kv, pv = in_turns(
-                    lambda: cuda_expand.expand_bits(base, **kw),
-                    lambda: cuda_expand.expand_bits_plain(base, **kw))
-                res["expand_bits"] = dict(ms=kx, plain_ms=px,
-                                          bound_ms=x_bound[0],
-                                          bound_by=x_bound[1],
-                                          library_ms=None)
-            else:
-                kv = cuda_expand.expand_bits(base, **kw)
-                pv = cuda_expand.expand_bits_plain(base, **kw)
-            compare_rows("expand_bits", kv, pv, f"rmat18 k={k} slab {i} of "
-                         f"{len(slabs)} ({sorted(kw)})")
-            del kv, pv
+            compare_rows("expand_bits", cuda_expand.expand_bits(base, **kw),
+                         cuda_expand.expand_bits_plain(base, **kw),
+                         f"rmat18 k={k} slab {i} of {len(slabs)} "
+                         f"({sorted(kw)})")
         if eng.n_lo:
             kl, pl, kv, pv = in_turns(
-                lambda: cuda_cliquek.lo_popcount(eng.bm, eng.core,
-                                                 eng.lo_cols),
+                lambda: cuda_cliquek.lo_popcount(eng.bm, eng.core, runs),
                 lambda: cuda_cliquek.lo_popcount_plain(eng.bm, eng.core,
-                                                       eng.lo_cols))
+                                                       runs))
             compare("lo_popcount", kv.sum(), pv.sum(),
                     f"rmat18 k={k} lo tasks")
             nbytes = lo_bytes(eng, kv.numel())
             lb = bound_ms(nbytes)
+            rb = bound_ms(nbytes - eng.lo_cols.numel() * 4 + runs.nbytes())
             if k == 5:
-                res["lo_popcount"] = dict(ms=kl, plain_ms=pl, bound_ms=lb[0],
-                                          bound_by=lb[1], library_ms=None)
-            say(f"[{CARD}] lo_popcount rmat18 k={k} ({eng.n_lo} lo tasks, 1 "
-                f"launch): kernel {kl:.4f} ms, plain {pl:.3f} ms, bound "
-                f"{lb[0]:.4f} ms ({lb[1]}, {nbytes} B)")
-        del eng
+                res["lo_popcount"] = dict(ms=kl, plain_ms=pl, bound_ms=rb[0],
+                                          bound_by=rb[1], library_ms=None,
+                                          task_list_bound_ms=lb[0])
+            say(f"[{CARD}] lo_popcount rmat18 k={k} ({eng.n_lo} lo tasks in "
+                f"{runs.n_runs} runs, 1 launch): kernel {kl:.4f} ms (PR 7's "
+                f"first design: {PR7_L_MS[k]} ms on an H100 80GB HBM3, "
+                f"700 W), plain {pl:.3f} ms, bound {rb[0]:.4f} ms ({rb[1]}, "
+                f"over the run table's bytes; {lb[0]:.4f} ms over the task "
+                f"list's, {nbytes} B, which L no longer reads)")
+        del eng, yard
     torch.cuda.empty_cache()
-    check(set(res) == {"expand_bits", "lo_popcount"},
+    check(set(res) == {"expand_bits", "lo_popcount", "bit_gram"},
           f"phase 13 timed only {sorted(res)}")
     return res, launches
 
@@ -1654,6 +1818,7 @@ def main():
     launches.update(hub_launches)
     pb, pb_launches = run_prof_breakdown()
     launches["fetch_rows_sum"] = pb_launches["fetch_rows_sum"]
+    launches["expand_bits"] = pb_launches["expand_bits"]   # the spoke slab
     pw, pw_launches = run_prof_window()
     launches.update(pw_launches)
 
@@ -1676,11 +1841,13 @@ def main():
     run_hybrid20()
     ck_res, ck_launches = run_clique18(g)
     res.update(ck_res)
-    launches.update(ck_launches)
+    for key, n in ck_launches.items():       # G: the hub-core count's too
+        launches[key] = launches.get(key, 0) + n
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "library_device_ms", "host_us", "library_host_us")
+    extra = ("device_ms", "library_device_ms", "host_us", "library_host_us",
+             "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

@@ -12,8 +12,8 @@ clique engine of ops/cliquek.py) and `info`, with the --cpu,
 --json, --profile, --chunk, --backend and --engine flags (their defaults
 come from GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
-(ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits)
-and L (lo_popcount) in this process. Without --cpu
+(ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
+L (lo_popcount) and G (bit_gram) in this process. Without --cpu
 the count runs on CUDA, and it fails when no card is visible. Every other
 verb, the fast clique (k >= 6) and SgL engines, and the --sharded and
 --partition flags are not ported yet: they exit non-zero and name
@@ -116,6 +116,7 @@ def main(argv=None):
     if ns.profile:
         from .ops.cuda_cliquek import lo_popcount
         from .ops.cuda_expand import expand_bits
+        from .ops.cuda_gram import bit_gram
         from .ops.cuda_hubcore import hub_tail_count
         from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
         from .ops.cuda_stream import stream_bucket_count
@@ -129,7 +130,7 @@ def main(argv=None):
         rep["kernel_launches"] = {
             f.__name__: f.launches
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
-                      hub_tail_count, expand_bits, lo_popcount)}
+                      hub_tail_count, expand_bits, lo_popcount, bit_gram)}
         out["profile"] = rep
 
     if ns.json:

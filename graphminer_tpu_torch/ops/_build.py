@@ -94,11 +94,19 @@ _SIGNATURES = {
     # out, stream
     "gm_expand_bits": [_VP, _I64, _I64, _VP, _VP, _I64, _I64, _VP, _I64,
                        _I64, _I64, _I64, _I64, _VP, _VP],
-    # bm, v, core, c, words, cols, n, nrow, partials, n_blocks, stream
+    # bm, v, core, c, words, shared, ns, vc, starts, vary, n_runs,
+    # partials, n_blocks, stream
     "gm_lo_popcount": [_VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _VP,
-                       _I64, _VP],
-    # -> blocks of one full wave (negative: a CUDA error)
-    "gm_lo_popcount_blocks": [],
+                       _VP, _I64, _VP, _I64, _VP],
+    # ns -> blocks of one full wave (negative: a CUDA error)
+    "gm_lo_popcount_blocks": [_I64],
+    # base, ldb, nb, r, tab, ldt, nt, c, depth, n, hw, mask, ldm, nm, tiles,
+    # n_tiles, kc, n_items, out, n_blocks, stream
+    "gm_bit_gram": [_VP, _I64, _I64, _VP, _VP, _I64, _I64, _VP, _I64, _I64,
+                    _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64, _VP, _I64,
+                    _VP],
+    # depth -> blocks of one full wave (negative: a CUDA error)
+    "gm_bit_gram_blocks": [_I64],
 }
 
 

@@ -18,9 +18,13 @@ stream and ring engines build on this layout.
 TriangleEngine is a third exact TC engine over it. Edges whose dst is in
 the core are counted gather-free by the spoke product: for the bit-expanded
 bitmap rows X of every vertex with >= 2 core out-neighbors and the core
-adjacency B, Σ_{(u,v), v ∈ core} |N+(u) ∩ N+(v)| = sum(B ⊙ XᵀX), one int8
-tensor-core product (torch._int_mm, a library call as the JAX package left
-it to XLA) over the bit expansion X by kernel X (ops/cuda_expand.py).
+adjacency B, Σ_{(u,v), v ∈ core} |N+(u) ∩ N+(v)| = sum(B ⊙ XᵀX), one
+launch of kernel G (ops/cuda_gram.py), which expands the packed rows on
+the chip, multiplies on the int8 tensor cores only the output tiles whose
+core-adjacency tile has a set bit (528 of 1,024 at a 4096-vertex core) and
+reads B's bits itself. The slab form G replaced, kernel X's expansion
+(ops/cuda_expand.py) and torch._int_mm (_spoke_slab_partials), stays as
+its yardstick.
 Edges with both endpoints outside the core are tail tasks, bucketed by
 tail-width class and counted by kernel E (ops/cuda_hubcore.py).
 Host planning (t_class_of, bucket_tail_tasks, pack_groups) is numpy and
@@ -41,6 +45,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
 from .cuda_expand import expand_bits
+from .cuda_gram import bit_gram, plan_gram
 from .cuda_hubcore import hub_tail_count, hub_tail_count_all, plan_tail_count
 
 # T-slot width classes (powers of four — tails are short by design).
@@ -48,8 +53,8 @@ T_CLASSES = (0, 16, 64, 256, 1024, 4096)
 DEFAULT_CORE = 4096
 DEFAULT_CHUNK = 32768
 SMALL_CHUNK = 4096
-#: most spoke rows expanded at once: bounds the int8 bit-expanded slab
-#: (65,536 x 4096 bytes = 256 MB at a 4096-vertex core)
+#: most spoke rows the slab form expands at once: bounds the int8
+#: bit-expanded slab (65,536 x 4096 bytes = 256 MB at a 4096-vertex core)
 MAX_SLAB = 1 << 16
 
 
@@ -220,10 +225,21 @@ def _expand_bits(rows: torch.Tensor, cpad: int, *,
 
 
 def _spoke_gemm_partials(table: torch.Tensor, spoke: torch.Tensor, *,
-                         words: int, c: int, tile: int) -> torch.Tensor:
+                         words: int, c: int, plan=None) -> torch.Tensor:
     """Σ_{(u,v) ∈ E, v ∈ core} |N+(u) ∩ N+(v)| per core row, as int64 [c]
     on the device: Σ_u x_uᵀ B x_u = sum(B ⊙ XᵀX), the gather-free spoke
-    count of hubcore.py::_spoke_gemm_body in Gram form.
+    count of hubcore.py::_spoke_gemm_body in Gram form, by one launch of
+    kernel G over the packed spoke rows [N, words] (zero rows add 0), with
+    B the core rows table[v-c:, :words] read in place. `plan` is
+    plan_gram of that mask (TriangleEngine makes it once)."""
+    v = table.shape[0]
+    return bit_gram(spoke, table[v - c:, :words], plan=plan)[:c]
+
+
+def _spoke_slab_partials(table: torch.Tensor, spoke: torch.Tensor, *,
+                         words: int, c: int, tile: int) -> torch.Tensor:
+    """_spoke_gemm_partials by the slab form that kernel G replaced (its
+    yardstick in chip_smoke.py and prof_breakdown.py).
 
     spoke = [N, words] compacted bitmap rows, N % tile == 0 (zero rows add
     0). Rows are bit-expanded by kernel X in slabs (tile doubled while it is
@@ -272,7 +288,7 @@ class TriangleEngine:
     prep (relabel, orient, layout build, spoke compaction, bucketing)
     happens once; a count is
       * the spoke product — every edge whose dst is in the core,
-        gather-free on the tensor cores;
+        gather-free on the tensor cores (one launch of kernel G);
       * the tail groups — only edges with BOTH endpoints outside the core
         (popcount + short tail compare, one launch of kernel E)."""
 
@@ -299,6 +315,11 @@ class TriangleEngine:
                                          self.spec, lay.words)
         self.n_tail_tasks = int(tail.sum())
         self.n_edges = int(src.shape[0])
+        #: the core adjacency, packed and read in place (kernel G's mask),
+        #: and its tile table
+        self.core_mask = lay.table[lay.n_vertices - lay.core_size:,
+                                   :lay.words]
+        self.gram_plan = plan_gram(self.core_mask)
 
     @staticmethod
     def _build_spoke(rg, lay: HubLayout, tile: int) -> torch.Tensor:
@@ -322,6 +343,13 @@ class TriangleEngine:
         if lay.core_size < 1:
             return torch.zeros(1, dtype=torch.int64, device=self.device)
         return _spoke_gemm_partials(lay.table, self.spoke, words=lay.words,
+                                    c=lay.core_size, plan=self.gram_plan)
+
+    def core_partials_slab(self) -> torch.Tensor:
+        """core_partials by the slab form (X + torch._int_mm), the yardstick
+        kernel G is timed against."""
+        lay = self.layout
+        return _spoke_slab_partials(lay.table, self.spoke, words=lay.words,
                                     c=lay.core_size, tile=self._tile)
 
     def count_tail(self) -> int:

@@ -3,18 +3,22 @@
 The port of scripts/prof_breakdown.py. Builds TriangleEngine
 (ops/hubcore.py) on RMAT scale 18, edge factor 16, seed 7, times its two
 halves apart — the tail groups (kernel E, ops/cuda_hubcore.py) and the spoke
-product (torch._int_mm; on its first slab, also the bit expansion by kernel
-X in both output layouts and by its plain version, and the product in both
-operand layouts) — and then calibrates the random-row fetch rate of
+product (kernel G, ops/cuda_gram.py, beside the slab form it replaced: X's
+expansion and torch._int_mm; on the first slab, also the bit expansion by
+kernel X in both output layouts and by its plain version, and the product
+in both operand layouts) — and then calibrates the random-row fetch rate of
 kernel D (ops/fetch.py) at the row widths the tail count reads: a 2^18-row
 int32 table of width W ∈ {8, 32, 128, 256}, T ∈ {2^16, 2^19} random indices,
 n_buf = 16. Each D result is held against the plain version, exactly.
 
 With --clique it times the hi part of CliqueKEngine (ops/cliquek.py) on
-the same graph instead: the Gram (X + torch._int_mm) on 1, 2 and 4 CUDA
-streams at k = 4 and 5, and at k = 5 the engine's flat triangle-task list
-against the JAX package's _bucket_tris form of the same tasks (per-edge
-rows of SENTINEL-padded c slots), each held to one hi total.
+the same graph instead, at k = 4 and 5, in turns: kernel G (hi_partials)
+and the slab form it replaced (ops/slab_form.py: X + the torch._int_mm
+Gram) on 1, 2 and 4 CUDA streams, and at k = 5 the slab form over the
+engine's flat triangle-task list against the JAX package's _bucket_tris
+form of the same tasks (per-edge rows of SENTINEL-padded c slots); each
+held to one hi total, and G's time printed beside its bounds
+(utils/profiling.py::gram_bounds).
 
     python -m graphminer_tpu_torch.scripts.prof_breakdown [--device cuda|cpu]
         [--clique]
@@ -39,10 +43,12 @@ from ..device import resolve_device
 from ..types import SENTINEL, round_up
 from ..io.synth import rmat
 from ..ops import hubcore
-from ..ops.cliquek import HI_STREAMS, CliqueKEngine, _bucket_tris, slab_gram
+from ..ops.cliquek import CliqueKEngine, _bucket_tris
 from ..ops.cuda_expand import expand_bits, expand_bits_plain
+from ..ops.cuda_gram import TILE
 from ..ops.fetch import fetch_rows_sum, fetch_rows_sum_plain
-from ..utils.profiling import bound_ms, device_ms, time_ms
+from ..ops.slab_form import HI_STREAMS, CliqueSlab
+from ..utils.profiling import bound_ms, device_ms, gram_bounds, time_ms
 
 SCALE = 18
 FETCH_ROWS = 1 << 18
@@ -132,23 +138,23 @@ def spoke_slab(eng, dev) -> dict:
     return out
 
 
-def bucket_calls(eng) -> list:
+def bucket_calls(eng, slab: int) -> list:
     """X's calls for the JAX package's form of a k = 5 engine's hi tasks:
     _bucket_tris groups the flat list into rows of 2-2048 c slots a bucket
     (an edge's y₂ hi slice and its c ids, SENTINEL padded), and each slot is
-    one expanded row. Slabs of at most eng.slab rows, whole bucket rows, as
+    one expanded row. Slabs of at most `slab` rows, whole bucket rows, as
     the JAX package steps them; the row of slot i is i // slots, passed to X
     as explicit rows."""
     dev = eng.device
     tri = torch.stack([eng.tri_rows, eng.tri_cols[:, 0]], 1).cpu().numpy()
-    tab = eng.core[:, eng.words - eng.hi_words:]
+    tab = eng.hi_args()[1]["tab"]
     calls = []
     for rows, cm, _step, _rt in _bucket_tris(eng.y2hi.cpu().numpy(), tri):
         tcl = cm.shape[1]
         rows = torch.from_numpy(rows).to(dev)
         cols = torch.from_numpy(cm).to(dev).reshape(-1, 1)
         r = torch.arange(cols.shape[0], dtype=torch.int32, device=dev) // tcl
-        step = max(1, eng.slab // tcl) * tcl
+        step = max(1, slab // tcl) * tcl
         for s in range(0, cols.shape[0], step):
             n = min(step, cols.shape[0] - s)
             calls.append((rows, dict(r=r[s:s + n], tab=tab,
@@ -158,46 +164,49 @@ def bucket_calls(eng) -> list:
 
 
 def clique_hi(dev) -> dict:
-    """CliqueKEngine's hi part at k = 4 and 5, in turns: the Gram on 1, 2
-    and 4 streams, and at k = 5 the flat list against the bucket form (both
-    on HI_STREAMS streams); every reading held to the engine's hi total."""
+    """CliqueKEngine's hi part at k = 4 and 5, in turns: kernel G, the slab
+    form on 1, 2 and 4 streams, and at k = 5 the slab form over the bucket
+    form's rows (on HI_STREAMS streams); every reading held to G's hi
+    total, G's beside its tile-walk, mask and full-Gram bounds."""
     g = rmat(SCALE, 16, seed=7)
-    cuda = dev.type == "cuda"
     res = {}
     for k in (4, 5):
         eng = CliqueKEngine(g, k, device=dev)
+        yard = CliqueSlab(eng)
         want = int(eng.hi_partials().sum())
-        streams = {n: ([torch.cuda.Stream(dev) for _ in range(n)]
-                       if cuda and n > 1 else []) for n in (1, 2, 4)}
 
-        def hi_of(slabs, st):
-            gram = slab_gram(slabs, eng.hi_dim, dev, st)
-            total = int((gram.to(torch.int64) * eng.bhh).sum())
-            if total != want:
-                raise RuntimeError(f"clique k={k}: hi {total} != {want}")
-
-        def xs(calls):
-            return (expand_bits(b, **kw) for b, kw in calls)
-
-        forms = {f"flat, {n} streams": (
-            lambda n=n: hi_of(eng._slabs(), streams[n])) for n in (1, 2, 4)}
-        rows = {"flat": sum(eng.slab_tasks)}
+        def checked(fn):
+            def run():
+                total = int(fn().sum())
+                if total != want:
+                    raise RuntimeError(f"clique k={k}: hi {total} != {want}")
+            return run
+        forms = {"G": checked(eng.hi_partials)}
+        forms.update({f"slab form, {n} streams": checked(
+            lambda n=n: yard.hi_partials(n)) for n in (1, 2, 4)})
+        rows = {"flat": sum(yard.slab_tasks)}
         if k == 5:
-            calls = bucket_calls(eng)
+            calls = bucket_calls(eng, yard.slab)
             rows["buckets"] = sum(kw["n_out"] for _, kw in calls)
-            forms[f"buckets, {HI_STREAMS} streams"] = (
-                lambda: hi_of(xs(calls), streams[HI_STREAMS]))
+            forms[f"buckets, {HI_STREAMS} streams"] = checked(
+                lambda: yard.hi_partials(HI_STREAMS, calls))
         got = {key: [] for key in forms}
         for key in list(forms) + list(forms)[::-1]:         # in turns
             got[key].append(time_ms(forms[key], dev, REPS)[0])
-        res[k] = {"hi": want, "n_slabs": eng.n_slabs, "expanded_rows": rows,
-                  "ms": got}
-        print(f"clique k={k} hi part {want} ({eng.n_slabs} slabs, expanded "
+        base, kw = eng.hi_args()
+        b = gram_bounds(base, eng.hi_mask, eng.gram_plan.n_tiles, TILE, **kw)
+        res[k] = {"hi": want, "n_tiles": eng.gram_plan.n_tiles,
+                  "n_slabs": yard.n_slabs, "expanded_rows": rows, "ms": got,
+                  "bounds": b}
+        print(f"clique k={k} hi part {want} (G over {eng.gram_plan.n_tiles}"
+              f" tiles; the slab form over {yard.n_slabs} slabs, expanded "
               f"rows {rows}), ms in turns: " + "; ".join(
-                  f"{key} {v[0]:.3f} / {v[1]:.3f}" for key, v in got.items()),
-              flush=True)
-        del eng
-        if cuda:
+                  f"{key} {v[0]:.3f} / {v[1]:.3f}" for key, v in got.items())
+              + f"; G's H100 bound {b['mask'][0]:.3f} ms over the mask's "
+              f"set bits ({b['mask'][1]}), {b['tiles'][0]:.3f} ms over its "
+              f"tiles, {b['full'][0]:.3f} ms over the full Gram", flush=True)
+        del eng, yard
+        if dev.type == "cuda":
             torch.cuda.empty_cache()
     return res
 
@@ -238,15 +247,20 @@ def main(argv=None) -> dict:
           f"{res['tail']['bound'][0]:.4f} ms, {t_bytes} bytes)",
           flush=True)
 
-    # --- spoke only (torch._int_mm) ---
+    # --- spoke only (kernel G; the slab form beside it) ---
     spoke_ms, spoke = time_ms(lambda: eng.core_partials().sum(), dev, REPS)
-    cpad = lay.words * 32
-    ops = 2 * cpad * cpad * (eng.spoke.shape[0] if lay.core_size else 0)
-    res["spoke"] = {"ms": spoke_ms, "count": int(spoke), "ops": ops,
-                    "bound": bound_ms(eng.spoke.numel() * 4, ops)}
-    print(f"spoke: {spoke_ms:.3f} ms count={int(spoke)} (H100 bound "
-          f"{res['spoke']['bound'][0]:.4f} ms, {ops:.3e} int8 ops)",
-          flush=True)
+    slab_ms, slab = time_ms(lambda: eng.core_partials_slab().sum(), dev,
+                            REPS)
+    if int(slab) != int(spoke):
+        raise RuntimeError(f"spoke: G {int(spoke)} != slab form {int(slab)}")
+    b = gram_bounds(eng.spoke, eng.core_mask, eng.gram_plan.n_tiles, TILE)
+    res["spoke"] = {"ms": spoke_ms, "slab_ms": slab_ms, "count": int(spoke),
+                    "bounds": b}
+    print(f"spoke: G {spoke_ms:.3f} ms, slab form {slab_ms:.3f} ms, "
+          f"count={int(spoke)} (H100 bound {b['mask'][0]:.4f} ms over the "
+          f"mask's set bits, {b['tiles'][0]:.4f} ms over "
+          f"{eng.gram_plan.n_tiles} tiles, {b['full'][0]:.4f} ms over the "
+          f"full Gram)", flush=True)
     if lay.core_size:
         res["spoke"]["slab"] = spoke_slab(eng, dev)
 

@@ -8,7 +8,8 @@ measures device time and not the host's enqueue; a CPU phase uses the host
 clock. time_ms times a repeated call the same way (on the card the event
 pair also spans the host's dispatch of the call), device_ms gives the
 device time alone and the device operations a call runs (torch.profiler),
-and bound_ms gives the least time an H100 SXM could take for a given work.
+bound_ms gives the least time an H100 SXM could take for a given work, and
+gram_bounds puts kernel G's work in bound_ms's terms.
 Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import time
 from collections import Counter, defaultdict
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -103,6 +105,41 @@ def bound_ms(n_bytes: float, n_int8_ops: float = 0.0):
     t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = n_int8_ops / H100_INT8_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def gram_bounds(base, mask, n_tiles: int, tile: int, *, r=None, tab=None,
+                cols=None) -> Dict:
+    """Kernel G's least times for one call (ops/cuda_gram.py::bit_gram's
+    arguments and its plan's n_tiles tiles of side tile): "bytes", the
+    task ids, each distinct packed row a valid id names (all n rows in
+    plain mode) and the mask rows read once, and the int64 partials;
+    "ops_mask", 2 * nnz(B) * n int8 operations, the Gram entries that the
+    mask's set bits select (what the function needs); "ops_tiles",
+    2 * tile^2 * n_tiles * n over the tiles G walks (its design's work);
+    "ops_full", 2 * dim^2 * n over the full Gram (the slab form's work);
+    "mask", "tiles" and "full", bound_ms of the bytes with each."""
+    hw = base.shape[1]
+    dim = 32 * hw
+    n = (cols.shape[0] if cols is not None else
+         r.shape[0] if r is not None else base.shape[0])
+    rows = min(mask.shape[0], dim)
+    nbytes = 8 * dim + rows * hw * 4
+    if r is None:
+        nbytes += n * hw * 4
+    for ids, tbl in ((r, base), (cols, tab)):
+        if ids is not None:
+            ids = ids.long()
+            ok = (ids >= 0) & (ids < tbl.shape[0])
+            nbytes += ids.numel() * 4 + \
+                int(torch.unique(ids[ok]).numel()) * hw * 4
+    m = mask[:rows].cpu().contiguous().numpy().view(np.uint8)
+    ops_mask = 2 * int(np.unpackbits(m).sum()) * n
+    ops_tiles = 2 * tile * tile * n_tiles * n
+    ops_full = 2 * dim * dim * n
+    return {"bytes": nbytes, "ops_mask": ops_mask, "ops_tiles": ops_tiles,
+            "ops_full": ops_full, "mask": bound_ms(nbytes, ops_mask),
+            "tiles": bound_ms(nbytes, ops_tiles),
+            "full": bound_ms(nbytes, ops_full)}
 
 
 def time_ms(fn, device, reps: int = 11):

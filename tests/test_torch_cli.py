@@ -49,7 +49,7 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert prof["counters"]["edge_tasks"] > 0
     assert set(prof["kernel_launches"]) == {
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
-        "hub_tail_count", "expand_bits", "lo_popcount"}
+        "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):

@@ -15,9 +15,9 @@ from graphminer_tpu.core.graph import HostGraph as JHostGraph
 from graphminer_tpu.ops import cliquek as jck
 from graphminer_tpu_torch.core.graph import HostGraph
 from graphminer_tpu_torch.io.synth import rmat
-from graphminer_tpu_torch.ops import cliquek
-from graphminer_tpu_torch.ops.cuda_cliquek import lo_popcount, \
-    lo_popcount_plain
+from graphminer_tpu_torch.ops import cliquek, slab_form
+from graphminer_tpu_torch.ops.cuda_cliquek import MAX_RUN, lo_popcount, \
+    lo_popcount_plain, lo_runs
 from graphminer_tpu_torch.workloads.clique import clique_count
 
 SENTINEL = np.iinfo(np.int32).max
@@ -39,9 +39,9 @@ def graph(name):
 
 
 @functools.lru_cache(maxsize=None)
-def engines(name, k, slab=0):
+def engines(name, k):
     g, kw = graph(name), GRAPHS[name][3]
-    return (cliquek.CliqueKEngine(g, k, slab=slab, device="cpu", **kw),
+    return (cliquek.CliqueKEngine(g, k, device="cpu", **kw),
             jck.CliqueKEngine(jax_graph(g), k, **kw))
 
 
@@ -121,6 +121,24 @@ def test_pad_rows_equal():
 
 
 @pytest.mark.parametrize("k", [4, 5])
+def test_slab_form_builds_on_first_use(k):
+    """The engine keeps nothing of the slab form (ops/slab_form.py): the
+    yardstick expands B_hh on first use, once, and its slabs cover every hi
+    task once, 32-row padded, at any slab size."""
+    ours = engines("rmat11s29", k)[0]
+    assert not hasattr(ours, "bhh") and not hasattr(ours, "streams")
+    yard = slab_form.CliqueSlab(ours, slab=1000)
+    assert yard._bhh is None and yard.slab == 1024
+    bhh = yard.bhh
+    assert yard.bhh is bhh and torch.equal(bhh, slab_form.hi_adj(ours))
+    assert yard.streams() == [] and yard.streams(4) == []
+    n = ours.n_tri if k == 5 else ours.n_core_edges
+    tasks = yard.slab_tasks
+    assert len(tasks) == yard.n_slabs == -(-n // 1024)
+    assert sum(tasks) == n + (-(n % 1024) % 32 if n % 1024 else 0)
+
+
+@pytest.mark.parametrize("k", [4, 5])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_engine_arrays_equal(name, k):
     """B_hh, the k = 4 y2hi rows, the k = 5 triangle tasks and the lo tasks
@@ -128,9 +146,9 @@ def test_engine_arrays_equal(name, k):
     edge-sorted list, which _bucket_tris turns into exactly JAX's
     buckets."""
     ours, ref = engines(name, k)
-    assert ours.bhh.dtype == torch.int8
-    assert np.array_equal(ours.bhh.numpy(),
-                          np.asarray(ref.bhh).astype(np.int8))
+    bhh = slab_form.hi_adj(ours)
+    assert bhh.dtype == torch.int8
+    assert np.array_equal(bhh.numpy(), np.asarray(ref.bhh).astype(np.int8))
     assert (ours.words, ours.hi_words) == (ref.words, ref.hi_words)
     n = ours.n_core_edges
     assert ours.y2hi.shape == (n, ours.hi_words)
@@ -178,19 +196,23 @@ def jax_hi_total(name, k):
     for small in (False, True)
     if not (small and (name, k) == ("rmat12ef16", 5))])
 def test_gram_hi_total_equals_jax(name, k, small):
-    """Σ ⟨B, YᵀY⟩ over X's slabs (slabs of SLAB_BYTES, or small slabs of
-    4096 tasks at k = 4 and 16384 at k = 5, 4x that on the rmat12 ef16
-    graph; its k = 5 hi part, the largest, is left at the default slab)
-    equals JAX's per-task bilinear sums."""
+    """Σ ⟨B, YᵀY⟩ by kernel G's path (hi_partials), and by the slab form
+    over X's slabs (slabs of SLAB_BYTES, or small slabs of 4096 tasks at
+    k = 4 and 16384 at k = 5, 4x that on the rmat12 ef16 graph; its k = 5
+    hi part, the largest, is left at the default slab), equals JAX's
+    per-task bilinear sums, row for row between the two forms."""
     slab = 0
     if small:
         slab = (4096 if k == 4 else 16384) * (4 if name == "rmat12ef16"
                                               else 1)
-    ours = engines(name, k, slab)[0]
+    ours = engines(name, k)[0]
     got = ours.hi_partials()
     assert got.dtype == torch.int64 and got.shape == (ours.hi_dim,)
     assert int(got.sum()) == jax_hi_total(name, k) > 0
-    assert ours.n_slabs >= (2 if small else 1)
+    yard = slab_form.CliqueSlab(ours, slab)
+    if small or (name, k) != ("rmat12ef16", 5):
+        assert torch.equal(yard.hi_partials(), got)
+    assert yard.n_slabs >= (2 if small else 1)
 
 
 @pytest.mark.parametrize("k", [4, 5])
@@ -227,12 +249,13 @@ def test_lo_popcount_equals_jax(nrow):
     rng = np.random.default_rng(nrow)
     bm, core, cols = lo_inputs(rng, nrow)
     t = torch.from_numpy
-    got = lo_popcount(t(bm), t(core), t(cols))
+    runs = lo_runs(cols)
+    got = lo_popcount(t(bm), t(core), runs)
     want = np.asarray(jck._lo_popcount(
         bm, core, cols, words=bm.shape[1], chunk=100, nrow=nrow),
         dtype=np.int64).sum()
     assert got.dtype == torch.int64 and int(got.sum()) == int(want) > 0
-    assert torch.equal(got, lo_popcount_plain(t(bm), t(core), t(cols)))
+    assert torch.equal(got, lo_popcount_plain(t(bm), t(core), runs))
 
 
 def test_lo_popcount_out_of_range_bm_adds_zero():
@@ -242,14 +265,105 @@ def test_lo_popcount_out_of_range_bm_adds_zero():
     rng = np.random.default_rng(9)
     bm, core, cols = lo_inputs(rng, 4, n=60)
     t = torch.from_numpy
-    base = int(lo_popcount(t(bm), t(core), t(cols)).sum())
+
+    def lo(c):
+        return int(lo_popcount(t(bm), t(core), lo_runs(c)).sum())
+    base = lo(cols)
     bad = cols.copy()
     bad[1, 1], bad[2, 0], bad[3, 1] = bm.shape[0], bm.shape[0] + 5, -1
     ok = np.ones(len(cols), bool)
     ok[1:4] = False
-    assert int(lo_popcount(t(bm), t(core), t(bad)).sum()) == \
-        int(lo_popcount(t(bm), t(core), t(cols[ok])).sum()) <= base
-    assert int(lo_popcount(t(bm), t(core), t(cols[:0])).sum()) == 0
+    assert lo(bad) == lo(cols[ok]) <= base
+    assert lo(cols[:0]) == 0
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("k", [4, 5])
+@pytest.mark.parametrize("name", ["rmat12s23", "rmat11s29"])
+def test_lo_runs_rebuild_lo_cols(name, k, native):
+    """Kernel L's run table, rebuilt into tasks, is the lo task list, for
+    the native and the numpy enumerators: runs are maximal (two neighbours
+    share their shared ids only where the first holds MAX_RUN tasks)."""
+    args = host_inputs(name, k)[:8]
+    enum = cliquek._enum_tasks_native if native else cliquek._enum_tasks
+    lo = enum(*args, k)[2]
+    runs = lo_runs(lo, 2)
+    assert lo.shape[0] >= runs.n_runs > 0
+    assert torch.equal(runs.tasks(), torch.from_numpy(lo))
+    same = (runs.shared[1:] == runs.shared[:-1]).all(dim=1)
+    lens = runs.starts[1:] - runs.starts[:-1]
+    assert (lens[:-1][same] == MAX_RUN).all() and (lens <= MAX_RUN).all()
+    if native:
+        ours = engines(name, k)[0]
+        assert torch.equal(ours.lo_runs.tasks(), ours.lo_cols[:ours.n_lo])
+
+
+def run_cols(rng, nrow, vc, lengths, v=300, c=90):
+    """Tasks in runs of the given lengths: each run's other ids drawn once,
+    its varying ids per task (a few outside the core when the varying
+    column is a core column; a bm id outside bm is the intended divergence
+    from JAX, test_lo_popcount_out_of_range_bm_adds_zero)."""
+    first = np.concatenate([rng.integers(0, v, (len(lengths), 2)),
+                            rng.integers(0, c, (len(lengths), nrow - 2))],
+                           axis=1)
+    cols = np.repeat(first, lengths, axis=0)
+    cols[:, vc] = (rng.integers(0, v, cols.shape[0]) if vc < 2 else
+                   rng.integers(-1, c + 1, cols.shape[0]))
+    return cols.astype(np.int32)
+
+
+@pytest.mark.parametrize("nrow", [2, 3, 4, 5, 6, 7, 8])
+def test_lo_popcount_runs_equal_jax(nrow):
+    """L over a run table (runs of 1 to 300 tasks, some runs whose shared
+    AND is all zero, padding rows) equals JAX's _lo_popcount on the task
+    list. The padding is SENTINEL, as the engine pads, or a = -1 at nrow 2,
+    where no core column zeroes a SENTINEL row in JAX (it clamps the bm
+    index)."""
+    rng = np.random.default_rng(40 + nrow)
+    bm = rng.integers(-2**31, 2**31, (300, 8), dtype=np.int64
+                      ).astype(np.int32)
+    bm |= rng.integers(-2**31, 2**31, (300, 8), dtype=np.int64
+                       ).astype(np.int32)
+    bm[5] = 0
+    core = bm[210:]
+    vc = 2 if nrow > 2 else 1
+    lengths = rng.choice([1, 1, 1, 2, 5, 40, 300], 60)
+    cols = run_cols(rng, nrow, vc, lengths)
+    cols[:lengths[0], 0] = 5                   # z == 0 on the first run
+    pad = np.full((100 - cols.shape[0] % 100, nrow), SENTINEL, np.int32)
+    if nrow == 2:
+        pad[:] = -1
+    cols = np.concatenate([cols, pad])
+    runs = lo_runs(cols, vc)
+    assert runs.n_runs < cols.shape[0] // 2 and (lengths == 1).any()
+    got = lo_popcount(torch.from_numpy(bm), torch.from_numpy(core), runs)
+    want = np.asarray(jck._lo_popcount(
+        bm, core, cols, words=8, chunk=100, nrow=nrow), dtype=np.int64).sum()
+    assert int(got.sum()) == int(want) > 0
+
+
+def test_lo_runs_edges():
+    """Runs of one task each, one run of every task, the varying column
+    anywhere, a stretch longer than MAX_RUN cut into runs of MAX_RUN, no
+    task, and the argument checks."""
+    cols = np.arange(24, dtype=np.int32).reshape(8, 3)
+    assert lo_runs(cols).n_runs == 8
+    same = np.repeat(cols[:1], 5, axis=0)
+    same[:, 1] = np.arange(5)
+    runs = lo_runs(same, 1)
+    assert runs.n_runs == 1 and runs.starts.tolist() == [0, 5]
+    assert torch.equal(runs.tasks(), torch.from_numpy(same))
+    long = np.repeat(cols[:2], [2 * MAX_RUN + 3, 1], axis=0)
+    long[:, 2] = np.arange(long.shape[0])
+    runs = lo_runs(long)
+    assert runs.starts.tolist() == [0, MAX_RUN, 2 * MAX_RUN,
+                                    2 * MAX_RUN + 3, 2 * MAX_RUN + 4]
+    assert torch.equal(runs.tasks(), torch.from_numpy(long))
+    empty = lo_runs(cols[:0])
+    assert empty.n_runs == 0 and empty.tasks().shape == (0, 3)
+    for bad in (dict(cols=cols[:, :1]), dict(cols=cols, vary_col=3)):
+        with pytest.raises(ValueError):
+            lo_runs(**bad)
 
 
 @pytest.mark.parametrize("k", [4, 5])

@@ -1,4 +1,4 @@
-"""Kernels A-E, m3, m3b, R, X and L against their plain PyTorch versions
+"""Kernels A-E, m3, m3b, R, X, L and G against their plain PyTorch versions
 on a CUDA card, A, B, C and E also as one grouped launch over many buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
@@ -17,8 +17,9 @@ import torch
 
 from graphminer_tpu_torch.io.synth import rmat
 from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
-                                      cuda_expand, cuda_hubcore, cuda_ring,
-                                      cuda_stream, cuda_window, fetch)
+                                      cuda_expand, cuda_gram, cuda_hubcore,
+                                      cuda_ring, cuda_stream, cuda_window,
+                                      fetch)
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
@@ -460,6 +461,8 @@ def test_expand_bits_gathered(dev, depth, transpose):
 @pytest.mark.parametrize("nrow", [3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("words_", [8, 128])
 def test_lo_popcount(dev, nrow, words_):
+    """Random tasks (runs of length 1 mostly), ids outside the tables and
+    SENTINEL rows."""
     rng = np.random.default_rng(nrow * words_)
     v, c, n = 3000, 900, 20000
     bm = torch.from_numpy(words(rng, v, words_)).to(dev)
@@ -468,45 +471,154 @@ def test_lo_popcount(dev, nrow, words_):
                            rng.integers(-2, c + 2, (n, nrow - 2))], axis=1
                           ).astype(np.int32)
     cols[-100:] = SENTINEL
-    cols = torch.from_numpy(cols).to(dev)
+    runs = cuda_cliquek.lo_runs(cols, device=dev)
     before = cuda_cliquek.lo_popcount.launches
-    got = cuda_cliquek.lo_popcount(bm, core, cols)
+    got = cuda_cliquek.lo_popcount(bm, core, runs)
     assert cuda_cliquek.lo_popcount.launches == before + 1
     assert int(got.sum()) == int(cuda_cliquek.lo_popcount_plain(
-        bm, core, cols).sum()) > 0
+        bm, core, runs).sum()) > 0
+
+
+def run_tasks(rng, nrow, vary_col, v, c, lengths):
+    """Tasks in runs of the given lengths: each run's shared ids drawn
+    once, the varying id per task, some varying ids outside their table."""
+    parts = []
+    for ln in lengths:
+        lo = np.concatenate([rng.integers(0, v, 2),
+                             rng.integers(0, c, nrow - 2)])
+        run = np.repeat(lo[None, :], ln, axis=0)
+        lim = v if vary_col < 2 else c
+        run[:, vary_col] = rng.integers(-1, lim + 1, ln)
+        parts.append(run)
+    return np.concatenate(parts).astype(np.int32)
+
+
+@pytest.mark.parametrize("nrow", [2, 3, 4, 5, 6, 7, 8])
+def test_lo_popcount_runs(dev, nrow):
+    """Runs of 1 to 5000 tasks (long runs span many work items and
+    blocks), an all-zero shared AND, SENTINEL padding; the varying column
+    2, or 1 when there is no core column."""
+    rng = np.random.default_rng(100 + nrow)
+    v, c, w = 5000, 4096, 128
+    vc = 2 if nrow > 2 else 1
+    bm_np = words(rng, v, w) | words(rng, v, w)
+    bm_np[7] = 0
+    lengths = rng.choice([1, 1, 2, 3, 17, 130, 700, 5000], 400)
+    cols = run_tasks(rng, nrow, vc, v, c, lengths)
+    cols[:50, 0] = 7                              # z == 0 for these tasks
+    cols = np.concatenate([cols, np.full((4096, nrow), SENTINEL, np.int32)])
+    bm = torch.from_numpy(bm_np).to(dev)
+    runs = cuda_cliquek.lo_runs(cols, vc, device=dev)
+    assert runs.n_runs < cols.shape[0] // 10
+    before = cuda_cliquek.lo_popcount.launches
+    got = cuda_cliquek.lo_popcount(bm, bm[v - c:], runs)
+    assert cuda_cliquek.lo_popcount.launches == before + 1
+    assert int(got.sum()) == int(cuda_cliquek.lo_popcount_plain(
+        bm, bm[v - c:], runs).sum()) > 0
 
 
 def test_lo_popcount_no_tasks(dev):
     bm = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+    runs = cuda_cliquek.lo_runs(np.zeros((0, 4), np.int32), device=dev)
     before = cuda_cliquek.lo_popcount.launches
-    got = cuda_cliquek.lo_popcount(
-        bm, bm[32:], torch.zeros((0, 4), dtype=torch.int32, device=dev))
+    got = cuda_cliquek.lo_popcount(bm, bm[32:], runs)
     assert cuda_cliquek.lo_popcount.launches == before
     assert int(got.sum()) == 0
+
+
+def gram_inputs(rng, dev, hw, depth, n):
+    """Strided views of random rows (every word's bit 31 in play), a tab,
+    ids with SENTINEL and out-of-range entries, and a random mask that is
+    not triangular, with an empty row tile when it has several."""
+    nb, nt = 3000, 2000
+    base = torch.from_numpy(words(rng, nb, hw + 4)).to(dev)[:, 4:]
+    tab = torch.from_numpy(words(rng, nt, hw + 8)).to(dev)[:, :hw]
+    r = rng.integers(-2, nb + 2, n).astype(np.int32)
+    r[::29] = SENTINEL
+    cols = rng.integers(-2, nt + 2, (n, depth)).astype(np.int32)
+    if depth:
+        cols[::31, depth - 1] = SENTINEL
+    nm = 32 * hw - 3
+    mask_np = words(rng, nm, hw + 4) & words(rng, nm, hw + 4)
+    if hw >= 8:
+        mask_np[128:256] = 0
+    mask = torch.from_numpy(mask_np).to(dev)[:, 2:hw + 2]
+    kw = dict(r=torch.from_numpy(r).to(dev),
+              tab=tab if depth else None,
+              cols=torch.from_numpy(cols).to(dev) if depth else None)
+    return base, mask, kw
+
+
+@pytest.mark.parametrize("hw", [4, 16, 32, 128])
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 5, 6])
+def test_bit_gram(dev, depth, hw):
+    """G == its plain version, max abs error 0: gathered rows at every
+    depth (depth 0 with explicit rows) and plain rows (3000), strided
+    views, n no multiple of the K-range, invalid ids, a non-triangular mask; one
+    launch a call."""
+    rng = np.random.default_rng(depth * 1000 + hw)
+    n = 70_001 if hw <= 32 else 9_001
+    base, mask, kw = gram_inputs(rng, dev, hw, depth, n)
+    plan = cuda_gram.plan_gram(mask)
+    calls = [kw] + ([dict()] if depth == 0 else [])
+    for args in calls:
+        before = cuda_gram.bit_gram.launches
+        got = cuda_gram.bit_gram(base, mask, plan=plan, **args)
+        assert cuda_gram.bit_gram.launches == before + 1
+        want = cuda_gram.bit_gram_plain(base, mask, **args)
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+        assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("hw", [1, 2, 5, 6])
+def test_bit_gram_ragged(dev, hw):
+    """Widths no multiple of the 4-word tile side (the kernel's scalar
+    loads), contiguous rows; no task launches nothing."""
+    rng = np.random.default_rng(hw)
+    base = torch.from_numpy(words(rng, 5000, hw)).to(dev)
+    mask = torch.from_numpy(words(rng, 32 * hw, hw)).to(dev)
+    got = cuda_gram.bit_gram(base, mask)
+    assert torch.equal(got, cuda_gram.bit_gram_plain(base, mask))
+    before = cuda_gram.bit_gram.launches
+    assert int(cuda_gram.bit_gram(base[:0], mask).sum()) == 0
+    assert cuda_gram.bit_gram.launches == before
 
 
 @pytest.mark.parametrize("k", [4, 5])
 def test_cliquek_engine_on_card(dev, k):
     """rmat12 with a small core: a real lo population and tail; the card's
-    count equals the CPU's, with L launched once and X once a slab."""
+    count equals the CPU's; the build launches no X, the count G once, L
+    once and X never; the slab form (X + torch._int_mm) agrees row for
+    row."""
     from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    from graphminer_tpu_torch.ops.slab_form import CliqueSlab
     g = rmat(12, 8, seed=23)
-    eng = CliqueKEngine(g, k, core=256, hi=64, slab=4096, device=dev)
+    x = cuda_expand.expand_bits.launches
+    eng = CliqueKEngine(g, k, core=256, hi=64, device=dev)
+    assert cuda_expand.expand_bits.launches == x
     want = CliqueKEngine(g, k, core=256, hi=64, device="cpu").count()
-    assert eng.n_lo > 0 and eng.n_slabs > 1
-    x, lo = cuda_expand.expand_bits.launches, cuda_cliquek.lo_popcount.launches
+    yard = CliqueSlab(eng, slab=4096)
+    assert eng.n_lo > 0 and yard.n_slabs > 1
+    lo, gr = cuda_cliquek.lo_popcount.launches, cuda_gram.bit_gram.launches
     assert eng.count() == want
     assert (cuda_expand.expand_bits.launches - x,
-            cuda_cliquek.lo_popcount.launches - lo) == (eng.n_slabs, 1)
+            cuda_cliquek.lo_popcount.launches - lo,
+            cuda_gram.bit_gram.launches - gr) == (0, 1, 1)
+    assert torch.equal(yard.hi_partials(), eng.hi_partials())
 
 
 def test_hub_core_spoke_on_x(dev):
-    """The hub-core count with the spoke expanded by X: one X launch a slab
-    and one for the core mask."""
+    """The hub-core count: one launch of E, one of G (the spoke) and none
+    of X; the spoke by G equals the CPU's and the slab form's (X +
+    torch._int_mm)."""
     g = rmat(12, 16, seed=7)
     eng = TriangleEngine(g, core=1024, device=dev)
-    before = cuda_expand.expand_bits.launches
+    before = (cuda_hubcore.hub_tail_count.launches,
+              cuda_gram.bit_gram.launches, cuda_expand.expand_bits.launches)
     assert eng.count() == 482_181
-    assert cuda_expand.expand_bits.launches > before
+    after = (cuda_hubcore.hub_tail_count.launches,
+             cuda_gram.bit_gram.launches, cuda_expand.expand_bits.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    assert torch.equal(eng.core_partials(), eng.core_partials_slab())
     assert eng.count_core() == \
         TriangleEngine(g, core=1024, device="cpu").count_core()

@@ -44,12 +44,16 @@ def test_prof_breakdown_on_cpu(monkeypatch, capsys):
 
 
 def test_prof_breakdown_clique_on_cpu(monkeypatch, capsys):
-    """--clique at scale 10: every form of the hi part (the flat list on 1,
-    2 and 4 streams, the bucket form at k = 5) reaches the engine's hi
-    total (the script raises otherwise), and the buckets expand more rows
-    than the flat list, which expands each triangle task once."""
+    """--clique at scale 10: every form of the hi part (kernel G's path,
+    the slab form on 1, 2 and 4 streams, the bucket form at k = 5) reaches
+    the engine's hi total (the script raises otherwise), each timed twice
+    in turns; the buckets expand more rows than the flat list, which
+    expands each triangle task once; G's bound over the mask's set bits
+    counts no more operations than over its tiles, nor those more than
+    over the full Gram."""
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops.cliquek import CliqueKEngine
+    from graphminer_tpu_torch.ops.slab_form import HI_STREAMS
     monkeypatch.setattr(prof_breakdown, "SCALE", 10)
     monkeypatch.setattr(prof_breakdown, "REPS", 1)
     res = prof_breakdown.main(["--device", "cpu", "--clique"])["clique"]
@@ -57,8 +61,15 @@ def test_prof_breakdown_clique_on_cpu(monkeypatch, capsys):
     rows = res[5]["expanded_rows"]
     assert rows["flat"] == -(-eng.n_tri // 32) * 32 < rows["buckets"]
     assert res[5]["hi"] == int(eng.hi_partials().sum()) > 0
-    assert sorted(res[4]["ms"]) == [f"flat, {n} streams" for n in (1, 2, 4)]
-    assert all(len(v) == 2 for k in (4, 5) for v in res[k]["ms"].values())
+    assert res[5]["n_tiles"] == eng.gram_plan.n_tiles
+    flat = ["G"] + [f"slab form, {n} streams" for n in (1, 2, 4)]
+    assert sorted(res[4]["ms"]) == sorted(flat)
+    assert sorted(res[5]["ms"]) == sorted(flat +
+                                          [f"buckets, {HI_STREAMS} streams"])
+    for k in (4, 5):
+        assert all(len(v) == 2 for v in res[k]["ms"].values())
+        b = res[k]["bounds"]
+        assert 0 < b["ops_mask"] <= b["ops_tiles"] <= b["ops_full"]
     assert "clique k=5 hi part" in capsys.readouterr().out
 
 
