@@ -6,20 +6,23 @@
 Drives the port's paths — exact triangle counting on RMAT scale 18, edge
 factor 16, seed 7 (82,947,332 triangles) through the stream, ring,
 hub-core and hybrid engines and the generic set-operation path, the
-three probe scripts, the generic clique and SgL counts, and the fast 4- and
-5-clique engine on the same graph (2,280,263,816 and 55,374,832,965) — and
-fails (non-zero exit, no result line) when any phase fails:
+three probe scripts, the generic clique and SgL counts, the fast 4- and
+5-clique engine on the same graph (2,280,263,816 and 55,374,832,965) and
+the large-clique engine (k = 6 at rmat14 and rmat16, k = 7 and 8 at
+rmat12) — and fails (non-zero exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
-  3. holds kernels A, B, C, D, E, m3, m3b, R, X, L and G against their
+  3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q against their
      plain PyTorch versions on the card, exactly: random inputs over every
      width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
      L over run tables at 2-8 rows a task (random tasks, and runs of 1-5000
-     tasks) and with no task (no launch), G at 4-128 words and depth 0-6
-     with a mask that is not triangular, then the real buckets and tail
+     tasks; at 5-7 rows with the last column varying) and with no task (no
+     launch), G at 1-128 words and depth 0-6 with a mask that is not
+     triangular, Q at 8-128 words with ids outside their tables and an
+     empty chunk (no launch), then the real buckets and tail
      groups of rmat14 builds, one by one and grouped (counts 2,860,691,
      also through TriangleEngine), G on the rmat14 spoke, and X's slabs and
      B_hh, G's hi tasks and L's lo tasks of the rmat14 CliqueKEngine at
@@ -69,9 +72,20 @@ fails (non-zero exit, no result line) when any phase fails:
      the slab form it replaced beside G's bounds, X's and L's device time
      beside their bounds and the peak device memory; then holds G to its
      plain version on each count's hi tasks, X on the first and the last
-     slab of each count's slab form and L on each lo run table.
+     slab of each count's slab form and L on each lo run table;
+ 14. runs CliqueBigEngine (k >= 6) against its goldens: rmat14 k = 6
+     (3,345,978,434) on the host-streamed path and on the device path
+     (kernel Q, then G), forced, with equal hi tasks; Q, G and L against
+     their plain versions on the device path's first chunk and first lo
+     dispatch, and Q's time beside its bound; rmat12 k = 7 (632,745,449),
+     also with small dispatches, and k = 8 (2,295,344,783), also by the
+     native DFS counter; rmat16 k = 6 (59,924,973,905) on the path the
+     engine picks. Each count launches G once a hi dispatch, L once a lo
+     dispatch and Q once a chunk (the device path only), and prints its
+     prep, tail and count seconds, task counts, launches, device ms of G,
+     L and Q (CUDA events) and peak device memory.
 
-Each path of phases 2, 4-6, 8, 12 and 13 runs with every launch count set to
+Each path of phases 2, 4-6, 8 and 12-14 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The rmat12, rmat14, rmat18 and rmat20 graphs are written
@@ -141,9 +155,17 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/bit_gram.cu",
         "replaces": "graphminer_tpu/ops/cliquek.py:223"},
+    "quad_emit": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/quad_emit.cu",
+        "replaces": "graphminer_tpu/ops/cliquebig.py:140"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
+#: rmat(scale, 16, seed=7) k-cliques for k >= 6 (bench.py:74-76,
+#: tests/test_cliquebig.py)
+GOLDEN_BIG = {(14, 6): 3_345_978_434, (16, 6): 59_924_973_905,
+              (12, 7): 632_745_449, (12, 8): 2_295_344_783}
 #: kernel L's first design at rmat18, ms a count (PERF.md, PR 7)
 PR7_L_MS = {4: 0.1367, 5: 1.5169}
 MAX_ERR = {k: 0 for k in KERNELS}
@@ -195,10 +217,11 @@ def build_kernels():
 def wrappers():
     """{kernel name: wrapper} for every kernel that counts its launches in
     process (kernel A's count comes from the CLI's own process)."""
-    from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
-                                          cuda_expand, cuda_gram,
-                                          cuda_hubcore, cuda_ring,
-                                          cuda_stream, cuda_window, fetch)
+    from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
+                                          cuda_cliquek, cuda_expand,
+                                          cuda_gram, cuda_hubcore,
+                                          cuda_ring, cuda_stream,
+                                          cuda_window, fetch)
     return {"stream_bucket_count": cuda_stream.stream_bucket_count,
             "ring_phase_c": cuda_ring.ring_phase_c,
             "ring_tail_pairs": cuda_ring.ring_tail_pairs,
@@ -208,7 +231,8 @@ def wrappers():
             "times_two": cuda_check.times_two,
             "expand_bits": cuda_expand.expand_bits,
             "lo_popcount": cuda_cliquek.lo_popcount,
-            "bit_gram": cuda_gram.bit_gram}
+            "bit_gram": cuda_gram.bit_gram,
+            "quad_emit": cuda_cliquebig.quad_emit}
 
 
 def reset_counts():
@@ -354,6 +378,7 @@ def kernel_checks_random():
     n_cases += kernel_checks_random_slice2(rng, t)
     n_cases += kernel_checks_random_x_l(rng, t)
     n_cases += kernel_checks_random_g(rng, t)
+    n_cases += kernel_checks_random_big(rng, t)
     n_cases += grouped_checks_random(rng, t)
     n_cases += grouped_checks_random_be(rng, t)
     torch.cuda.synchronize()
@@ -658,6 +683,73 @@ def kernel_checks_random_g(rng, t):
     got = G(base[:0], mask)
     check(G.launches == before and int(got.sum()) == 0,
           "bit_gram with no tasks launched or counted")
+    return n_cases + 1
+
+
+def kernel_checks_random_big(rng, t):
+    """Q, G and L at the large-clique engine's shapes on random inputs;
+    returns the number of cases. Q: words 8, 32 and 128, bit 31 in play,
+    n_bits inside a word, ids outside their tables, offsets past 2^31, and
+    an empty chunk, which must launch nothing; G: hw 1, 2 and 8 (k = 8, 7
+    and 6) at depth 2-4 (k - 4); L: nrow 5-7 (k - 1), the last column
+    varying."""
+    from graphminer_tpu_torch.ops import (cuda_cliquebig, cuda_cliquek,
+                                          cuda_gram)
+    Q, Qp = cuda_cliquebig.quad_emit, cuda_cliquebig.quad_emit_plain
+    n_cases = 0
+    for w in (8, 32, 128):
+        e, c, n = 20000, 4096, 100_000 if w < 128 else 30_000
+        y2, core = t(_words(rng, (e, w + 4)))[:, 4:], t(_words(rng, (c, w)))
+        erow = rng.integers(-2, e + 2, n).astype(np.int32)
+        c1 = rng.integers(-2, c + 2, n).astype(np.int32)
+        erow[::41] = SENTINEL
+        n_bits = 32 * w - 5
+        ok = (erow >= 0) & (erow < e) & (c1 >= 0) & (c1 < c)
+        y = (y2.cpu().numpy()[np.where(ok, erow, 0)]
+             & core.cpu().numpy()[np.where(ok, c1, 0)])
+        bits = np.unpackbits(y.view(np.uint8), axis=1, bitorder="little")
+        off = cuda_cliquebig.quad_offsets(
+            bits[:, :n_bits].sum(axis=1) * ok) + (1 << 31) + 9
+        args = (y2, core, t(erow), t(c1), t(off), n_bits, int(off[-1] -
+                                                               off[0]))
+        for kv, pv in zip(Q(*args), Qp(*args)):
+            compare("quad_emit", kv, pv, f"random words={w} n_bits="
+                    f"{n_bits} ({int(off[-1] - off[0])} quads)")
+        n_cases += 1
+    before = Q.launches
+    r, _ = Q(y2, core, t(erow[:0]), t(c1[:0]), t(off[:1]), n_bits)
+    check(Q.launches == before and r.numel() == 0,
+          "quad_emit with no tasks launched or wrote")
+    G, Gp = cuda_gram.bit_gram, cuda_gram.bit_gram_plain
+    for hw in (1, 2, 8):
+        nb, nt, n = 5000, 4096, 200_003
+        base = t(_words(rng, (nb, hw)))
+        tab = t(_words(rng, (nt, 128)))[:, 128 - hw:]
+        mask = t(_words(rng, (32 * hw - 3, hw)))
+        for depth in (2, 3, 4):
+            r = rng.integers(-2, nb + 2, n).astype(np.int32)
+            cols = rng.integers(-2, nt + 2, (n, depth)).astype(np.int32)
+            cols[::31, depth - 1] = SENTINEL
+            kw = dict(r=t(r), tab=tab, cols=t(cols))
+            compare("bit_gram", G(base, mask, **kw), Gp(base, mask, **kw),
+                    f"random hw={hw} depth={depth} n={n}")
+            n_cases += 1
+    L, Lp = cuda_cliquek.lo_popcount, cuda_cliquek.lo_popcount_plain
+    v, c = 20000, 4096
+    bm = t(_words(rng, (v, 128)) | _words(rng, (v, 128)))
+    for nrow in (5, 6, 7):
+        lens = rng.choice([1, 1, 2, 3, 17, 130, 700], 300)
+        first = np.concatenate([rng.integers(0, v, (lens.size, 2)),
+                                rng.integers(0, c, (lens.size, nrow - 2))],
+                               axis=1)
+        cols = np.repeat(first, lens, axis=0)
+        cols[:, -1] = rng.integers(-1, c + 1, cols.shape[0])
+        runs = cuda_cliquek.lo_runs(cols.astype(np.int32), nrow - 1,
+                                    device="cuda")
+        compare("lo_popcount", L(bm, bm[v - c:], runs).sum(),
+                Lp(bm, bm[v - c:], runs).sum(),
+                f"nrow={nrow} vary_col={nrow - 1} ({runs.n_runs} runs)")
+        n_cases += 1
     return n_cases + 1
 
 
@@ -1802,6 +1894,152 @@ def run_clique18(g):
     return res, launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: the large-clique engine (k >= 6)
+# --------------------------------------------------------------------------
+
+def big_count(label, eng, want, min_tris=None):
+    """One CliqueBigEngine count with every launch count at 0 before it (the
+    k = 6 path forced by DEV6_MIN_TRIS = min_tris when given): the golden,
+    one launch of G a hi dispatch, of L a lo dispatch and of Q a chunk and
+    none of another kernel, and the count's statistics. Returns the
+    launches."""
+    if min_tris is not None:
+        eng.DEV6_MIN_TRIS = min_tris
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total, _ = run_path(label, eng.count, ["bit_gram"])
+    peak = torch.cuda.max_memory_allocated()
+    got = read_counts()
+    d = {key: eng.dispatches.get(key, 0) for key in ("hi", "lo", "quad")}
+    check(total == want, f"{label}: {total} != {want}")
+    want_launches = {"bit_gram": d["hi"], "lo_popcount": d["lo"],
+                     "quad_emit": d["quad"]}
+    check(got == {key: want_launches.get(key, 0) for key in got},
+          f"{label}: launches {got}, dispatches {d}")
+    check((d["quad"] > 0) == (eng.path == "device") and
+          (d["lo"] > 0) == (eng.n_lo_tasks > 0),
+          f"{label}: path {eng.path}, dispatches {d}, lo tasks "
+          f"{eng.n_lo_tasks}")
+    ms = eng.kernel_ms
+    say(f"[{CARD}] {label}: count {total} (hi {eng.hi_total} + lo "
+        f"{eng.lo_total} + tail {eng.tail_total}), path {eng.path}; prep "
+        f"{eng.prep_s:.3f} s, tail {eng.tail_s:.3f} s; count "
+        f"{eng.count_s:.3f} s (host: hi part {eng.stream_s['hi']:.3f} s, "
+        f"lo part {eng.stream_s['lo']:.3f} s); hi tasks {eng.n_hi_tasks}, "
+        f"lo tasks {eng.n_lo_tasks}, triangle tasks {eng.n_tri_tasks}; "
+        f"launches G {d['hi']}, L {d['lo']}, Q "
+        f"{d['quad']}; device ms (CUDA events) hi {ms.get('hi', 0.0):.3f}, "
+        f"lo {ms.get('lo', 0.0):.3f}, Q {ms.get('quad', 0.0):.3f}; "
+        f"max_memory_allocated {peak} B")
+    return got
+
+
+def build_big(g, k, label):
+    """CliqueBigEngine(g, k) on the card; its build launches no kernel of
+    ours."""
+    from graphminer_tpu_torch.ops.cliquebig import CliqueBigEngine
+    eng, _ = run_path(f"{label} build",
+                      lambda: CliqueBigEngine(g, k, device="cuda"), [])
+    built = {key: n for key, n in read_counts().items() if n}
+    check(not built, f"the {label} build launched {built}, not none")
+    return eng
+
+
+def run_cliquebig():
+    """Phase 14: CliqueBigEngine against GOLDEN_BIG. rmat14 k = 6 on the
+    host-streamed path and on the device path (Q + G), forced, with the
+    same hi tasks; Q, G and L against their plain versions on the device
+    path's first chunk and first lo dispatch, Q timed there beside its
+    bound; rmat12 k = 7, also with small dispatches (many refills of the
+    pinned buffers under asynchronous copies), and k = 8, also through the
+    native DFS counter (kclique_dfs); rmat16 k = 6 on the path the engine
+    picks. Returns ({"quad_emit": timing}, {kernel: launches})."""
+    from graphminer_tpu_torch import native_bridge
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import (cliquebig, cuda_cliquebig,
+                                          cuda_cliquek, cuda_gram)
+    from graphminer_tpu_torch.utils.profiling import (bound_ms, quad_bytes,
+                                                      time_ms as timed)
+    t_phase = time.perf_counter()
+    launches = {"bit_gram": 0, "lo_popcount": 0, "quad_emit": 0}
+
+    def add(got):
+        for key in launches:
+            launches[key] += got[key]
+
+    eng = build_big(rmat(14, 16, seed=7), 6, "CliqueBigEngine rmat14 k=6")
+    want = GOLDEN_BIG[(14, 6)]
+    add(big_count("rmat14 k=6, host-streamed path", eng, want, 1 << 62))
+    n_hi = eng.n_hi_tasks
+    add(big_count("rmat14 k=6, device path (DEV6_MIN_TRIS = 0)", eng, want,
+                  0))
+    check(eng.n_hi_tasks == n_hi, f"rmat14 k=6: {eng.n_hi_tasks} hi tasks "
+          f"on the device path, {n_hi} on the host path")
+    # Q, G and L against their plain versions on the device path's inputs
+    args = next(eng.quad_chunks())
+    y2full, _, erow, c1, _, _, nq = args
+    r, cols = cuda_cliquebig.quad_emit(*args)
+    rp, cp = cuda_cliquebig.quad_emit_plain(*args)
+    compare("quad_emit", r, rp, f"rmat14 k=6 first chunk ({nq} quads)")
+    compare("quad_emit", cols, cp, f"rmat14 k=6 first chunk ({nq} quads)")
+    del rp, cp
+    gk = dict(r=r, tab=eng.core_hi, cols=cols)
+    compare("bit_gram",
+            cuda_gram.bit_gram(eng.y2hi, eng.hi_mask, plan=eng.gram_plan,
+                               **gk),
+            cuda_gram.bit_gram_plain(eng.y2hi, eng.hi_mask, **gk),
+            f"rmat14 k=6 the first chunk's {nq} quads")
+    lo = next(eng.lo_tasks(), None)
+    check(lo is not None, "rmat14 k=6: no lo dispatch")
+    runs = cuda_cliquek.lo_runs(lo, lo.shape[1] - 1, device="cuda")
+    compare("lo_popcount",
+            cuda_cliquek.lo_popcount(eng.bm, eng.core, runs).sum(),
+            cuda_cliquek.lo_popcount_plain(eng.bm, eng.core, runs).sum(),
+            f"rmat14 k=6 first lo dispatch ({runs.n} tasks)")
+    del r, cols, gk
+    kq, _ = time_ms(lambda: cuda_cliquebig.quad_emit(*args))
+    pq, _ = timed(lambda: cuda_cliquebig.quad_emit_plain(*args), "cuda", 1)
+    nbytes = quad_bytes(y2full, eng.core, erow, c1, nq)
+    qb = bound_ms(nbytes)
+    res = {"quad_emit": dict(ms=kq, plain_ms=pq, bound_ms=qb[0],
+                             bound_by=qb[1], library_ms=None)}
+    say(f"[{CARD}] quad_emit, rmat14 k=6 first chunk ({erow.numel()} "
+        f"triangle tasks, {nq} quads, 1 launch): kernel {kq:.4f} ms, plain "
+        f"{pq:.3f} ms, bound {qb[0]:.4f} ms ({qb[1]}, {nbytes} B)")
+    del args, y2full, erow, c1, eng
+
+    g12 = rmat(12, 16, seed=7)
+    for k in (7, 8):
+        eng = build_big(g12, k, f"CliqueBigEngine rmat12 k={k}")
+        add(big_count(f"rmat12 k={k}", eng, GOLDEN_BIG[(12, k)]))
+        if k == 7:
+            n_disp = eng.dispatches["hi"]
+            default = cliquebig.DISPATCH_TASKS
+            cliquebig.DISPATCH_TASKS = 1 << 21
+            try:
+                add(big_count("rmat12 k=7, 2^21 tasks a dispatch", eng,
+                              GOLDEN_BIG[(12, 7)]))
+            finally:
+                cliquebig.DISPATCH_TASKS = default
+            check(eng.dispatches["hi"] > 4 * n_disp,
+                  f"small dispatches: {eng.dispatches} (default {n_disp})")
+        del eng
+    rg = g12.relabel_by_degree(descending=False).orientation()
+    t0 = time.perf_counter()
+    dfs = native_bridge.kclique_dfs(rg.rowptr, rg.colidx, 8)
+    check(dfs == GOLDEN_BIG[(12, 8)], f"kclique_dfs rmat12 k=8: {dfs}")
+    say(f"kclique_dfs rmat12 k=8 (native DFS, no code shared with the "
+        f"engine): {dfs} in {time.perf_counter() - t0:.2f} s")
+
+    eng = build_big(rmat(16, 16, seed=7), 6, "CliqueBigEngine rmat16 k=6")
+    add(big_count("rmat16 k=6, the engine's path", eng, GOLDEN_BIG[(16, 6)]))
+    del eng
+    torch.cuda.empty_cache()
+    say(f"phase 14 (large cliques): {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def main():
     check_environment()
     build_kernels()
@@ -1841,8 +2079,11 @@ def main():
     run_hybrid20()
     ck_res, ck_launches = run_clique18(g)
     res.update(ck_res)
-    for key, n in ck_launches.items():       # G: the hub-core count's too
-        launches[key] = launches.get(key, 0) + n
+    big_res, big_launches = run_cliquebig()
+    res.update(big_res)
+    for part in (ck_launches, big_launches):   # G: the hub-core count's too
+        for key, n in part.items():
+            launches[key] = launches.get(key, 0) + n
     torch.cuda.synchronize()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -8,16 +8,17 @@
 Ported so far: `tc` (the generic set-operation path; with --fast the stream
 engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
 engine; clique 3 --fast is the stream engine, clique 4|5 --fast the hi/lo
-clique engine of ops/cliquek.py) and `info`, with the --cpu,
+clique engine of ops/cliquek.py, clique k >= 6 --fast the streamed
+large-clique engine of ops/cliquebig.py) and `info`, with the --cpu,
 --json, --profile, --chunk, --backend and --engine flags (their defaults
 come from GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
-L (lo_popcount) and G (bit_gram) in this process. Without --cpu
-the count runs on CUDA, and it fails when no card is visible. Every other
-verb, the fast clique (k >= 6) and SgL engines, and the --sharded and
---partition flags are not ported yet: they exit non-zero and name
-ROADMAP.md, and nothing runs in their place.
+L (lo_popcount), G (bit_gram) and Q (quad_emit) in this process. Without
+--cpu the count runs on CUDA, and it fails when no card is visible. Every
+other verb, the fast SgL engines, and the --sharded and --partition flags
+are not ported yet: they exit non-zero and name ROADMAP.md, and nothing
+runs in their place.
 """
 from __future__ import annotations
 
@@ -55,7 +56,9 @@ def main(argv=None):
                    help="frontier engine: compact | map")
     p.add_argument("--fast", action="store_true",
                    help="fast engines: tc and clique 3 = stream engine, "
-                        "clique 4|5 = hi/lo clique engine (CliqueKEngine)")
+                        "clique 4|5 = hi/lo clique engine (CliqueKEngine), "
+                        "clique k >= 6 = large-clique engine "
+                        "(CliqueBigEngine)")
     p.add_argument("--partition", type=int, default=0, metavar="N",
                    help="(not ported)")
     p.add_argument("--profile", action="store_true",
@@ -114,6 +117,8 @@ def main(argv=None):
     out["load_s"] = round(t_load, 3)
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:
+        import torch
+        from .ops.cuda_cliquebig import quad_emit
         from .ops.cuda_cliquek import lo_popcount
         from .ops.cuda_expand import expand_bits
         from .ops.cuda_gram import bit_gram
@@ -127,10 +132,13 @@ def main(argv=None):
         if dt and ops:
             rep["set_intersections_per_s"] = ops / dt
         rep["device"] = str(device)
+        if device.type == "cuda":
+            rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         rep["kernel_launches"] = {
             f.__name__: f.launches
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
-                      hub_tail_count, expand_bits, lo_popcount, bit_gram)}
+                      hub_tail_count, expand_bits, lo_popcount, bit_gram,
+                      quad_emit)}
         out["profile"] = rep
 
     if ns.json:

@@ -7,9 +7,11 @@ instruction set it dies with SIGILL, which no `except OSError` catches.
 This bridge compiles its own copy from native/graphcore.cpp at first use,
 without -march=native, into the port's git-ignored build directory, keyed by
 a hash of the source, and loads that copy. native/ itself is not touched.
-It binds orient, relabel_by_degree, sort_neighbors, edge_list, csr_from_coo
-and expand_emit (the k-clique engine's task enumerator); expand_multi,
-count_multi and kclique_dfs wait for the k >= 6 clique engine.
+It binds orient, relabel_by_degree, sort_neighbors, edge_list, csr_from_coo,
+expand_emit (the k-clique engines' task enumerator), expand_multi (its
+(task, bit) form), count_multi (the k >= 6 engine's per-task popcount
+prepass) and kclique_dfs (an independent DFS k-clique counter that the
+tests and the smoke script hold the bitmap engines against).
 
 Every entry point returns None when the library is unavailable (no g++ or
 a failed build); core/graph.py then takes its numpy path. Which path was
@@ -103,6 +105,16 @@ def get_lib():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, pp, pp, ctypes.c_int64, pp, ctypes.c_int64, i32p,
             i64p]
+        lib.gm_expand_multi.restype = ctypes.c_int64
+        lib.gm_expand_multi.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, pp, pp, ctypes.c_int64, i64p, i32p, i64p]
+        lib.gm_count_multi.restype = None
+        lib.gm_count_multi.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            pp, pp, i32p]
+        lib.gm_kclique.restype = ctypes.c_int64
+        lib.gm_kclique.argtypes = [ctypes.c_int64, i64p, i32p, ctypes.c_int64]
         log.info("native preprocessing: %s (%d threads)", path,
                  lib.gm_num_threads())
         _lib = lib
@@ -204,3 +216,56 @@ def expand_emit(bases, rows, attrs, words: int, n_bits: int, start: int,
         _pointers(bases_c), _pointers(rows_c), len(attrs_c),
         _pointers(attrs_c), cap, out.reshape(-1), nxt)
     return int(n), int(nxt[0])
+
+
+def expand_multi(bases, rows, words: int, n_bits: int, start: int,
+                 cap: int, out_task: np.ndarray, out_bit: np.ndarray):
+    """Streamed set-bit expansion (gm_expand_multi): for tasks from
+    `start`, AND the bitmap rows bases[s][rows[s][t]] (rows int64) and
+    write (task, bit) for every set bit below n_bits into out_task (int64)
+    and out_bit (int32), capacity cap, task-major and bit-ascending, whole
+    tasks only. Returns (n_emitted, next_start), or None when the library
+    is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bases_c = [np.ascontiguousarray(b.view(np.uint32)) for b in bases]
+    rows_c = [np.ascontiguousarray(r, dtype=np.int64) for r in rows]
+    for name, a, dt in (("out_task", out_task, np.int64),
+                        ("out_bit", out_bit, np.int32)):
+        if not a.flags["C_CONTIGUOUS"] or a.dtype != dt or a.shape[0] < cap:
+            raise ValueError(f"{name} must be C-contiguous {dt.__name__} "
+                             f"[>= {cap}], got {a.dtype} {a.shape}")
+    nxt = np.zeros(1, dtype=np.int64)
+    n = lib.gm_expand_multi(
+        rows_c[0].shape[0], start, words, n_bits, len(bases_c),
+        _pointers(bases_c), _pointers(rows_c), cap, out_task, out_bit, nxt)
+    return int(n), int(nxt[0])
+
+
+def count_multi(bases, rows, words: int, n_bits: int):
+    """Per-task popcount below n_bits of the AND of the bitmap rows
+    bases[s][rows[s][t]] (gm_count_multi), int32 [n], or None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bases_c = [np.ascontiguousarray(b.view(np.uint32)) for b in bases]
+    rows_c = [np.ascontiguousarray(r, dtype=np.int32) for r in rows]
+    out = np.empty(rows_c[0].shape[0], dtype=np.int32)
+    lib.gm_count_multi(rows_c[0].shape[0], words, n_bits, len(bases_c),
+                       _pointers(bases_c), _pointers(rows_c), out)
+    return out
+
+
+def kclique_dfs(rowptr: np.ndarray, colidx: np.ndarray, k: int):
+    """k-clique count by a DAG depth-first search with sorted-merge
+    intersections (gm_kclique), which shares no code with the bitmap
+    engines; the input is the oriented DAG with sorted rows. None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return int(lib.gm_kclique(rowptr.shape[0] - 1,
+                              np.ascontiguousarray(rowptr, np.int64),
+                              np.ascontiguousarray(colidx, np.int32), k))

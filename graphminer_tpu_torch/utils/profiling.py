@@ -9,7 +9,8 @@ clock. time_ms times a repeated call the same way (on the card the event
 pair also spans the host's dispatch of the call), device_ms gives the
 device time alone and the device operations a call runs (torch.profiler),
 bound_ms gives the least time an H100 SXM could take for a given work, and
-gram_bounds puts kernel G's work in bound_ms's terms.
+gram_bounds and quad_bytes put kernel G's and kernel Q's work in its
+terms.
 Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
@@ -140,6 +141,18 @@ def gram_bounds(base, mask, n_tiles: int, tile: int, *, r=None, tab=None,
             "ops_full": ops_full, "mask": bound_ms(nbytes, ops_mask),
             "tiles": bound_ms(nbytes, ops_tiles),
             "full": bound_ms(nbytes, ops_full)}
+
+
+def quad_bytes(y2, core, erow, c1, n_quads: int) -> int:
+    """The bytes kernel Q (ops/cuda_cliquebig.py::quad_emit) must move for
+    one call: each task's ids and offset (4 + 4 + 8 B), each distinct y2
+    and core row a valid task names read once (the row's words up to
+    n_bits, here all of them), and 12 B written a quad."""
+    r, c = erow.long(), c1.long()
+    ok = (r >= 0) & (r < y2.shape[0]) & (c >= 0) & (c < core.shape[0])
+    rows = int(torch.unique(r[ok]).numel()) + \
+        int(torch.unique(c[ok]).numel())
+    return 16 * r.numel() + rows * y2.shape[1] * 4 + 12 * n_quads
 
 
 def time_ms(fn, device, reps: int = 11):

@@ -49,7 +49,8 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert prof["counters"]["edge_tasks"] > 0
     assert set(prof["kernel_launches"]) == {
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
-        "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram"}
+        "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram",
+        "quad_emit"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):
@@ -68,7 +69,7 @@ def test_tc_without_card_exits_naming_cuda(prefix):
 
 
 @pytest.mark.parametrize("args", [
-    ("tc", "--partition", "2"), ("clique", "6", "--fast"),
+    ("tc", "--partition", "2"), ("sgl", "house", "--fast"),
     ("sgl", "diamond", "--fast"), ("motif", "3"),
     ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
 def test_unported_exits_naming_roadmap(prefix, args):
@@ -94,10 +95,11 @@ def test_generic_verbs_cpu_agree_with_jax(small, capsys, args):
     assert set(prof["kernel_launches"].values()) == {0}
 
 
-@pytest.mark.parametrize("k", ["4", "5"])
+@pytest.mark.parametrize("k", ["4", "5", "6"])
 def test_clique_fast_cpu_agrees_with_jax(small, capsys, k):
-    """clique 4|5 --fast runs CliqueKEngine (the plain versions of X and L
-    on --cpu) and agrees with the JAX package's fast engine."""
+    """clique 4|5 --fast runs CliqueKEngine and clique 6 --fast
+    CliqueBigEngine (the plain versions of their kernels on --cpu), and
+    each agrees with the JAX package's fast engine."""
     ours = run(main, capsys, "clique", small, k, "--fast", "--cpu",
                "--profile")
     ref = run(jmain, capsys, "clique", small, k, "--fast", "--cpu")

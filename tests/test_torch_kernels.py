@@ -1,5 +1,6 @@
-"""Kernels A-E, m3, m3b, R, X, L and G against their plain PyTorch versions
-on a CUDA card, A, B, C and E also as one grouped launch over many buckets.
+"""Kernels A-E, m3, m3b, R, X, L, G and Q against their plain PyTorch
+versions on a CUDA card, A, B, C and E also as one grouped launch over many
+buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -16,10 +17,10 @@ import pytest
 import torch
 
 from graphminer_tpu_torch.io.synth import rmat
-from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquek,
-                                      cuda_expand, cuda_gram, cuda_hubcore,
-                                      cuda_ring, cuda_stream, cuda_window,
-                                      fetch)
+from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
+                                      cuda_cliquek, cuda_expand, cuda_gram,
+                                      cuda_hubcore, cuda_ring, cuda_stream,
+                                      cuda_window, fetch)
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
@@ -622,3 +623,123 @@ def test_hub_core_spoke_on_x(dev):
     assert torch.equal(eng.core_partials(), eng.core_partials_slab())
     assert eng.count_core() == \
         TriangleEngine(g, core=1024, device="cpu").count_core()
+
+
+def quad_case(rng, dev, w, n=20000, e=5000, c=3000):
+    """Q's inputs: rows with bit 31 in play, ids outside their tables,
+    n_bits inside a word; off from the tasks' bit counts (0 for a task
+    with an invalid id), starting past 2^31."""
+    y2 = torch.from_numpy(words(rng, e, w)).to(dev)
+    core = torch.from_numpy(words(rng, c, w)).to(dev)
+    erow = rng.integers(-2, e + 2, n).astype(np.int32)
+    c1 = rng.integers(-2, c + 2, n).astype(np.int32)
+    erow[::41] = SENTINEL
+    n_bits = 32 * w - 7
+    ok = (erow >= 0) & (erow < e) & (c1 >= 0) & (c1 < c)
+    y = (y2.cpu().numpy()[np.where(ok, erow, 0)] &
+         core.cpu().numpy()[np.where(ok, c1, 0)])
+    bits = np.unpackbits(y.view(np.uint8), axis=1, bitorder="little")
+    counts = bits[:, :n_bits].sum(axis=1) * ok
+    off = cuda_cliquebig.quad_offsets(counts) + (1 << 31) + 3
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return y2, core, t(erow), t(c1), t(off), n_bits
+
+
+@pytest.mark.parametrize("w", [8, 32, 128])
+def test_quad_emit(dev, w):
+    """Q == its plain version (max abs error 0), one launch a call; a call
+    with no task launches nothing."""
+    rng = np.random.default_rng(w)
+    args = quad_case(rng, dev, w)
+    before = cuda_cliquebig.quad_emit.launches
+    r, cols = cuda_cliquebig.quad_emit(*args)
+    assert cuda_cliquebig.quad_emit.launches == before + 1
+    rp, cp = cuda_cliquebig.quad_emit_plain(*args)
+    assert r.numel() > 0 and torch.equal(r, rp) and torch.equal(cols, cp)
+    assert bool((cols[:, 1] % 32 == 31).any())
+    y2, core, erow, c1, off, n_bits = args
+    r, cols = cuda_cliquebig.quad_emit(y2, core, erow[:0], c1[:0], off[:1],
+                                       n_bits)
+    assert r.numel() == 0 and cuda_cliquebig.quad_emit.launches == before + 1
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("hw", [1, 2, 8])
+def test_bit_gram_cliquebig_widths(dev, hw, depth):
+    """G at the large-clique engine's hi widths (hw 8, 2 and 1 at k = 6, 7
+    and 8) and depths (k - 4) == its plain version."""
+    rng = np.random.default_rng(50 + 10 * hw + depth)
+    base, mask, kw = gram_inputs(rng, dev, hw, depth, 30_001)
+    got = cuda_gram.bit_gram(base, mask, **kw)
+    assert torch.equal(got, cuda_gram.bit_gram_plain(base, mask, **kw))
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("nrow", [5, 6, 7])
+def test_lo_popcount_vary_last(dev, nrow):
+    """L over the large-clique engine's lo run tables: nrow 5-7 (k = 6-8),
+    the last column varying."""
+    rng = np.random.default_rng(200 + nrow)
+    v, c, w = 5000, 4096, 128
+    bm_np = words(rng, v, w) | words(rng, v, w)
+    lengths = rng.choice([1, 1, 2, 3, 17, 130, 700], 400)
+    cols = run_tasks(rng, nrow, nrow - 1, v, c, lengths)
+    bm = torch.from_numpy(bm_np).to(dev)
+    runs = cuda_cliquek.lo_runs(cols, nrow - 1, device=dev)
+    got = cuda_cliquek.lo_popcount(bm, bm[v - c:], runs)
+    assert int(got.sum()) == int(cuda_cliquek.lo_popcount_plain(
+        bm, bm[v - c:], runs).sum()) > 0
+
+
+def kernel_events(fn):
+    """{kernel name: launches} of our kernels that torch.profiler records
+    over fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        val = fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    out = {}
+    for key in ("bit_gram_kernel", "lo_popcount_kernel", "quad_emit_kernel"):
+        out[key] = sum(n for name, n in names.items() if key in name)
+    return val, out
+
+
+@pytest.mark.parametrize("k,device_path", [(6, False), (6, True), (7, False)])
+def test_cliquebig_engine_on_card(dev, k, device_path):
+    """rmat12 with a small core (lo tasks and a tail) and small dispatches:
+    the card's count equals the CPU's, at two dispatch sizes (the pinned
+    buffers are refilled under asynchronous copies); one G launch a hi
+    dispatch, one L launch a lo dispatch and one Q launch a chunk, by the
+    wrappers' counts and by torch.profiler."""
+    from unittest import mock
+    from graphminer_tpu_torch.ops import cliquebig
+    g = rmat(12, 8, seed=23)
+    kw = dict(core=512, hi=32)
+    want = cliquebig.CliqueBigEngine(g, k, device="cpu", **kw).count()
+    eng = cliquebig.CliqueBigEngine(g, k, device=dev, **kw)
+    if device_path:
+        eng.DEV6_MIN_TRIS, eng.T6, eng.CAP6 = 0, 1 << 14, 1 << 17
+    else:
+        eng.DEV6_MIN_TRIS = 1 << 62
+    for d in (1 << 15, cliquebig.DISPATCH_TASKS):
+        with mock.patch.object(cliquebig, "DISPATCH_TASKS", d):
+            before = (cuda_gram.bit_gram.launches,
+                      cuda_cliquek.lo_popcount.launches,
+                      cuda_cliquebig.quad_emit.launches)
+            got, ev = kernel_events(eng.count)
+            after = (cuda_gram.bit_gram.launches,
+                     cuda_cliquek.lo_popcount.launches,
+                     cuda_cliquebig.quad_emit.launches)
+        assert got == want
+        assert eng.path == ("device" if device_path else "host")
+        disp = eng.dispatches
+        n = (disp.get("hi", 0), disp.get("lo", 0), disp.get("quad", 0))
+        assert tuple(a - b for a, b in zip(after, before)) == n
+        assert (ev["bit_gram_kernel"], ev["lo_popcount_kernel"],
+                ev["quad_emit_kernel"]) == n
+        assert n[0] > 0 and n[1] > 0 and (n[2] > 0) == device_path

@@ -116,3 +116,27 @@ def test_scripts_need_a_card_by_default(monkeypatch, script, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         script.main(argv)
+
+
+def test_prof_cliquebig_on_cpu(capsys):
+    """prof_cliquebig at scale 9: at k = 6 the host and the device path (in
+    turns, then at a small CAP6 in several chunks) and at k = 7 the one
+    path give the native DFS count, with one dispatch counted per launch
+    the engine made."""
+    from graphminer_tpu_torch import native_bridge
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.scripts import prof_cliquebig
+    rg = rmat(9, 16, seed=7).relabel_by_degree(
+        descending=False).orientation()
+    for k, extra in ((6, ["--caps", "65536"]), (7, [])):
+        res = prof_cliquebig.main(["--device", "cpu", "--k", str(k),
+                                   "--scales", "9", *extra])
+        runs = res["scales"][9]["runs"]
+        want = native_bridge.kclique_dfs(rg.rowptr, rg.colidx, k)
+        assert [r["count"] for r in runs] == [want] * len(runs)
+        assert len(runs) == (5 if k == 6 else 2)
+        if k == 6:
+            assert [r["path"] for r in runs] == ["host", "device", "device",
+                                                  "host", "device"]
+            assert runs[-1]["dispatches"]["quad"] > 1
+    assert "rmat9 k=7" in capsys.readouterr().out
