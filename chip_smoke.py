@@ -14,15 +14,18 @@ rmat12) — and fails (non-zero exit, no result line) when any phase fails:
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
-  3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q against their
+  3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q (its count
+     and its emit) against their
      plain PyTorch versions on the card, exactly: random inputs over every
      width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
      L over run tables at 2-8 rows a task (random tasks, and runs of 1-5000
      tasks; at 5-7 rows with the last column varying) and with no task (no
      launch), G at 1-128 words and depth 0-6 with a mask that is not
-     triangular, Q at 8-128 words with ids outside their tables and an
-     empty chunk (no launch), then the real buckets and tail
+     triangular, Q at 8-160 words, on whole tables and on views, with ids
+     outside their tables, 4096-quad tasks and an empty chunk (no launch),
+     and refusing tables that are not 16-byte aligned, then
+     the real buckets and tail
      groups of rmat14 builds, one by one and grouped (counts 2,860,691,
      also through TriangleEngine), G on the rmat14 spoke, and X's slabs and
      B_hh, G's hi tasks and L's lo tasks of the rmat14 CliqueKEngine at
@@ -75,15 +78,19 @@ rmat12) — and fails (non-zero exit, no result line) when any phase fails:
      slab of each count's slab form and L on each lo run table;
  14. runs CliqueBigEngine (k >= 6) against its goldens: rmat14 k = 6
      (3,345,978,434) on the host-streamed path and on the device path
-     (kernel Q, then G), forced, with equal hi tasks; Q, G and L against
-     their plain versions on the device path's first chunk and first lo
-     dispatch, and Q's time beside its bound; rmat12 k = 7 (632,745,449),
+     (kernel Q's count and emit, then G), forced, with equal hi tasks; Q's
+     count against its plain version and the chunks' offsets on all the
+     count's triangle tasks, Q's emit, G and L against their plain
+     versions on the device path's first chunk and first lo dispatch, and
+     both Q launches timed beside their bounds (the emit also beside the
+     time of Q's first design, one warp a task); rmat12 k = 7 (632,745,449),
      also with small dispatches, and k = 8 (2,295,344,783), also by the
      native DFS counter; rmat16 k = 6 (59,924,973,905) on the path the
      engine picks. Each count launches G once a hi dispatch, L once a lo
-     dispatch and Q once a chunk (the device path only), and prints its
-     prep, tail and count seconds, task counts, launches, device ms of G,
-     L and Q (CUDA events) and peak device memory.
+     dispatch, Q's emit once a chunk and Q's count once (the device path
+     only), and prints its prep, tail and count seconds, the host split of
+     its hi part, task counts, launches, device ms of G, L and Q (CUDA
+     events) and peak device memory.
 
 Each path of phases 2, 4-6, 8 and 12-14 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
@@ -159,6 +166,10 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/quad_emit.cu",
         "replaces": "graphminer_tpu/ops/cliquebig.py:140"},
+    "quad_count": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/quad_emit.cu",
+        "replaces": "graphminer_tpu/ops/cliquebig.py:161"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
@@ -168,6 +179,9 @@ GOLDEN_BIG = {(14, 6): 3_345_978_434, (16, 6): 59_924_973_905,
               (12, 7): 632_745_449, (12, 8): 2_295_344_783}
 #: kernel L's first design at rmat18, ms a count (PERF.md, PR 7)
 PR7_L_MS = {4: 0.1367, 5: 1.5169}
+#: kernel Q's first design (one warp a task, offsets from the host) on the
+#: rmat14 k = 6 chunk, ms on an H100 80GB HBM3, 700 W (PERF.md)
+FIRST_Q_MS = 1.9027
 MAX_ERR = {k: 0 for k in KERNELS}
 #: window_count's rows_per_step of kernels m3 and m3b
 WINDOW_ROWS = {"window_count_m3": 1, "window_count_m3b": 8}
@@ -232,7 +246,8 @@ def wrappers():
             "expand_bits": cuda_expand.expand_bits,
             "lo_popcount": cuda_cliquek.lo_popcount,
             "bit_gram": cuda_gram.bit_gram,
-            "quad_emit": cuda_cliquebig.quad_emit}
+            "quad_emit": cuda_cliquebig.quad_emit,
+            "quad_count": cuda_cliquebig.quad_count}
 
 
 def reset_counts():
@@ -688,38 +703,62 @@ def kernel_checks_random_g(rng, t):
 
 def kernel_checks_random_big(rng, t):
     """Q, G and L at the large-clique engine's shapes on random inputs;
-    returns the number of cases. Q: words 8, 32 and 128, bit 31 in play,
-    n_bits inside a word, ids outside their tables, offsets past 2^31, and
-    an empty chunk, which must launch nothing; G: hw 1, 2 and 8 (k = 8, 7
-    and 6) at depth 2-4 (k - 4); L: nrow 5-7 (k - 1), the last column
-    varying."""
+    returns the number of cases. Q's count and emit: words 8, 32, 128 and
+    160 (wider than a warp's load), whole tables and views 4 words in, bit
+    31 in play, n_bits inside a word, ids outside their tables, runs of
+    equal erow, tasks of 4096 quads (staged in rounds), offsets past 2^31,
+    and an empty chunk, which must launch nothing; a view 1 word in (not
+    16-byte aligned) must be refused; G: hw 1, 2 and 8 (k = 8, 7 and 6) at depth 2-4
+    (k - 4); L: nrow 5-7 (k - 1), the last column varying."""
     from graphminer_tpu_torch.ops import (cuda_cliquebig, cuda_cliquek,
                                           cuda_gram)
     Q, Qp = cuda_cliquebig.quad_emit, cuda_cliquebig.quad_emit_plain
+    K, Kp = cuda_cliquebig.quad_count, cuda_cliquebig.quad_count_plain
     n_cases = 0
-    for w in (8, 32, 128):
+    for w, shift in ((8, 4), (32, 4), (128, 4), (128, 0), (160, 0)):
         e, c, n = 20000, 4096, 100_000 if w < 128 else 30_000
-        y2, core = t(_words(rng, (e, w + 4)))[:, 4:], t(_words(rng, (c, w)))
+        y2 = t(_words(rng, (e, w + shift)))[:, shift:]
+        core = t(_words(rng, (c, w + shift)))[:, shift:]
+        if w == 128:
+            y2[:2], core[:2] = -1, -1             # 4096-quad tasks
         erow = rng.integers(-2, e + 2, n).astype(np.int32)
         c1 = rng.integers(-2, c + 2, n).astype(np.int32)
         erow[::41] = SENTINEL
-        n_bits = 32 * w - 5
+        erow[n // 2:] = np.sort(erow[n // 2:])    # runs of equal erow
+        erow[::997], c1[::997] = 1, 0
+        n_bits = 32 * w - 5 if w != 128 else 32 * w
+        what = f"random words={w} n_bits={n_bits} row shift {shift}"
         ok = (erow >= 0) & (erow < e) & (c1 >= 0) & (c1 < c)
         y = (y2.cpu().numpy()[np.where(ok, erow, 0)]
              & core.cpu().numpy()[np.where(ok, c1, 0)])
         bits = np.unpackbits(y.view(np.uint8), axis=1, bitorder="little")
-        off = cuda_cliquebig.quad_offsets(
-            bits[:, :n_bits].sum(axis=1) * ok) + (1 << 31) + 9
-        args = (y2, core, t(erow), t(c1), t(off), n_bits, int(off[-1] -
-                                                               off[0]))
+        want = bits[:, :n_bits].sum(axis=1) * ok
+        counts = K(y2, core, t(erow), t(c1), n_bits)
+        compare("quad_count", counts, Kp(y2, core, t(erow), t(c1), n_bits),
+                what)
+        compare("quad_count", counts, want, f"{what} (numpy)")
+        off = cuda_cliquebig.quad_offsets(counts) + (1 << 31) + 9
+        args = (y2, core, t(erow), t(c1), off, n_bits, int(off[-1] -
+                                                           off[0]))
         for kv, pv in zip(Q(*args), Qp(*args)):
-            compare("quad_emit", kv, pv, f"random words={w} n_bits="
-                    f"{n_bits} ({int(off[-1] - off[0])} quads)")
-        n_cases += 1
-    before = Q.launches
-    r, _ = Q(y2, core, t(erow[:0]), t(c1[:0]), t(off[:1]), n_bits)
-    check(Q.launches == before and r.numel() == 0,
-          "quad_emit with no tasks launched or wrote")
+            compare("quad_emit", kv, pv, f"{what} ({args[-1]} quads)")
+        n_cases += 2
+    before = (Q.launches, K.launches)
+    r, _ = Q(y2, core, t(erow[:0]), t(c1[:0]), off[:1], n_bits)
+    check((Q.launches, K.launches) == before and r.numel() == 0 and
+          K(y2, core, t(erow[:0]), t(c1[:0]), n_bits).numel() == 0,
+          "quad_emit or quad_count with no tasks launched or wrote")
+    for fn, a in ((K, (y2[:, 1:-3], core[:, 1:-3], t(erow), t(c1), n_bits)),
+                  (Q, (y2[:, 1:-3], core[:, 1:-3], t(erow), t(c1), off,
+                       n_bits))):
+        try:
+            fn(*a)
+        except ValueError:
+            pass
+        else:
+            check(False, "Q took tables that are not 16-byte aligned")
+    check((Q.launches, K.launches) == before,
+          "quad_emit or quad_count launched on unaligned tables")
     G, Gp = cuda_gram.bit_gram, cuda_gram.bit_gram_plain
     for hw in (1, 2, 8):
         nb, nt, n = 5000, 4096, 200_003
@@ -1901,9 +1940,10 @@ def run_clique18(g):
 def big_count(label, eng, want, min_tris=None):
     """One CliqueBigEngine count with every launch count at 0 before it (the
     k = 6 path forced by DEV6_MIN_TRIS = min_tris when given): the golden,
-    one launch of G a hi dispatch, of L a lo dispatch and of Q a chunk and
-    none of another kernel, and the count's statistics. Returns the
-    launches."""
+    one launch of G a hi dispatch, of L a lo dispatch, of Q's emit a chunk
+    and of Q's count a count on the device path, and none of another
+    kernel, and the count's statistics (the host split of its hi part
+    included). Returns the launches."""
     if min_tris is not None:
         eng.DEV6_MIN_TRIS = min_tris
     torch.cuda.empty_cache()
@@ -1914,7 +1954,8 @@ def big_count(label, eng, want, min_tris=None):
     d = {key: eng.dispatches.get(key, 0) for key in ("hi", "lo", "quad")}
     check(total == want, f"{label}: {total} != {want}")
     want_launches = {"bit_gram": d["hi"], "lo_popcount": d["lo"],
-                     "quad_emit": d["quad"]}
+                     "quad_emit": d["quad"],
+                     "quad_count": int(eng.path == "device")}
     check(got == {key: want_launches.get(key, 0) for key in got},
           f"{label}: launches {got}, dispatches {d}")
     check((d["quad"] > 0) == (eng.path == "device") and
@@ -1925,8 +1966,9 @@ def big_count(label, eng, want, min_tris=None):
     say(f"[{CARD}] {label}: count {total} (hi {eng.hi_total} + lo "
         f"{eng.lo_total} + tail {eng.tail_total}), path {eng.path}; prep "
         f"{eng.prep_s:.3f} s, tail {eng.tail_s:.3f} s; count "
-        f"{eng.count_s:.3f} s (host: hi part {eng.stream_s['hi']:.3f} s, "
-        f"lo part {eng.stream_s['lo']:.3f} s); hi tasks {eng.n_hi_tasks}, "
+        f"{eng.count_s:.3f} s (host s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in eng.stream_s.items())
+        + f"); hi tasks {eng.n_hi_tasks}, "
         f"lo tasks {eng.n_lo_tasks}, triangle tasks {eng.n_tri_tasks}; "
         f"launches G {d['hi']}, L {d['lo']}, Q "
         f"{d['quad']}; device ms (CUDA events) hi {ms.get('hi', 0.0):.3f}, "
@@ -1954,15 +1996,18 @@ def run_cliquebig():
     bound; rmat12 k = 7, also with small dispatches (many refills of the
     pinned buffers under asynchronous copies), and k = 8, also through the
     native DFS counter (kclique_dfs); rmat16 k = 6 on the path the engine
-    picks. Returns ({"quad_emit": timing}, {kernel: launches})."""
+    picks. Returns ({"quad_emit": timing, "quad_count": timing},
+    {kernel: launches})."""
     from graphminer_tpu_torch import native_bridge
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops import (cliquebig, cuda_cliquebig,
                                           cuda_cliquek, cuda_gram)
     from graphminer_tpu_torch.utils.profiling import (bound_ms, quad_bytes,
+                                                      quad_count_bytes,
                                                       time_ms as timed)
     t_phase = time.perf_counter()
-    launches = {"bit_gram": 0, "lo_popcount": 0, "quad_emit": 0}
+    launches = {"bit_gram": 0, "lo_popcount": 0, "quad_emit": 0,
+                "quad_count": 0}
 
     def add(got):
         for key in launches:
@@ -1977,8 +2022,21 @@ def run_cliquebig():
     check(eng.n_hi_tasks == n_hi, f"rmat14 k=6: {eng.n_hi_tasks} hi tasks "
           f"on the device path, {n_hi} on the host path")
     # Q, G and L against their plain versions on the device path's inputs
-    args = next(eng.quad_chunks())
-    y2full, _, erow, c1, _, _, nq = args
+    chunks = list(eng.quad_chunks())
+    args = chunks[0]
+    y2full, _, erow, c1, _, n_bits, nq = args
+    # Q's count over all the count's triangle tasks, as the engine launches
+    # it, against its plain version and the chunks' offsets
+    erow_all = torch.cat([ch[2] for ch in chunks])
+    c1_all = torch.cat([ch[3] for ch in chunks])
+    off_all = torch.cat([chunks[0][4][:1]] + [ch[4][1:] for ch in chunks])
+    kc = cuda_cliquebig.quad_count(y2full, eng.core, erow_all, c1_all,
+                                   n_bits)
+    compare("quad_count", kc, cuda_cliquebig.quad_count_plain(
+        y2full, eng.core, erow_all, c1_all, n_bits),
+        f"rmat14 k=6, all {erow_all.numel()} triangle tasks")
+    compare("quad_count", cuda_cliquebig.quad_offsets(kc),
+            off_all - off_all[0], "rmat14 k=6, the chunks' offsets")
     r, cols = cuda_cliquebig.quad_emit(*args)
     rp, cp = cuda_cliquebig.quad_emit_plain(*args)
     compare("quad_emit", r, rp, f"rmat14 k=6 first chunk ({nq} quads)")
@@ -2002,12 +2060,25 @@ def run_cliquebig():
     pq, _ = timed(lambda: cuda_cliquebig.quad_emit_plain(*args), "cuda", 1)
     nbytes = quad_bytes(y2full, eng.core, erow, c1, nq)
     qb = bound_ms(nbytes)
+    count_args = (y2full, eng.core, erow_all, c1_all, n_bits)
+    kk, _ = time_ms(lambda: cuda_cliquebig.quad_count(*count_args))
+    pk, _ = timed(lambda: cuda_cliquebig.quad_count_plain(*count_args),
+                  "cuda", 1)
+    cbytes = quad_count_bytes(*count_args[:4])
+    cb = bound_ms(cbytes)
     res = {"quad_emit": dict(ms=kq, plain_ms=pq, bound_ms=qb[0],
-                             bound_by=qb[1], library_ms=None)}
+                             bound_by=qb[1], library_ms=None),
+           "quad_count": dict(ms=kk, plain_ms=pk, bound_ms=cb[0],
+                              bound_by=cb[1], library_ms=None)}
     say(f"[{CARD}] quad_emit, rmat14 k=6 first chunk ({erow.numel()} "
-        f"triangle tasks, {nq} quads, 1 launch): kernel {kq:.4f} ms, plain "
-        f"{pq:.3f} ms, bound {qb[0]:.4f} ms ({qb[1]}, {nbytes} B)")
-    del args, y2full, erow, c1, eng
+        f"triangle tasks, {nq} quads, 1 launch): kernel {kq:.4f} ms (first "
+        f"design, recorded in PERF.md: {FIRST_Q_MS} ms), plain {pq:.3f} "
+        f"ms, bound {qb[0]:.4f} ms ({qb[1]}, {nbytes} B)")
+    say(f"[{CARD}] quad_count, rmat14 k=6 all {erow_all.numel()} triangle "
+        f"tasks (1 launch): kernel {kk:.4f} ms, plain {pk:.3f} ms, bound "
+        f"{cb[0]:.4f} ms ({cb[1]}, {cbytes} B)")
+    del args, count_args, chunks, y2full, erow, c1, erow_all, c1_all
+    del off_all, kc, eng
 
     g12 = rmat(12, 16, seed=7)
     for k in (7, 8):

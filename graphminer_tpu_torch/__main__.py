@@ -14,7 +14,10 @@ large-clique engine of ops/cliquebig.py) and `info`, with the --cpu,
 come from GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
-L (lo_popcount), G (bit_gram) and Q (quad_emit) in this process. Without
+L (lo_popcount), G (bit_gram) and Q (quad_emit, quad_count) in this
+process; on a large-clique count its phases_s also hold the host seconds
+of the count's steps (host_hi, host_lo and, at k = 6, host_hi_estimate,
+host_hi_triangles, host_hi_h2d, host_hi_offsets, host_hi_quad_gram). Without
 --cpu the count runs on CUDA, and it fails when no card is visible. Every
 other verb, the fast SgL engines, and the --sharded and --partition flags
 are not ported yet: they exit non-zero and name ROADMAP.md, and nothing
@@ -118,7 +121,7 @@ def main(argv=None):
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:
         import torch
-        from .ops.cuda_cliquebig import quad_emit
+        from .ops.cuda_cliquebig import quad_count, quad_emit
         from .ops.cuda_cliquek import lo_popcount
         from .ops.cuda_expand import expand_bits
         from .ops.cuda_gram import bit_gram
@@ -138,7 +141,7 @@ def main(argv=None):
             f.__name__: f.launches
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
                       hub_tail_count, expand_bits, lo_popcount, bit_gram,
-                      quad_emit)}
+                      quad_emit, quad_count)}
         out["profile"] = rep
 
     if ns.json:

@@ -107,6 +107,10 @@ _SIGNATURES = {
                     _VP],
     # depth -> blocks of one full wave (negative: a CUDA error)
     "gm_bit_gram_blocks": [_I64],
+    # y2, ldy, ny, core, ldc, nc, nw, n_bits, erow, c1, n, counts,
+    # n_blocks, stream
+    "gm_quad_count": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, _VP,
+                      _VP, _I64, _VP, _I64, _VP],
     # y2, ldy, ny, core, ldc, nc, nw, n_bits, erow, c1, off, n, r_out,
     # cols_out, n_blocks, stream
     "gm_quad_emit": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, _VP, _VP,

@@ -34,10 +34,13 @@ On the card:
   gm_expand_emit, task-major and bit-ascending; the numpy one through
   np.nonzero's row-major order), so a run shares a, b, d1..d_{k-4}.
 * k = 6 device path (_hi6_device): the triangle tasks (edge row, c1) go to
-  the card once; each chunk of them is one launch of kernel Q
-  (ops/cuda_cliquebig.py::quad_emit), which writes every (edge row, c1, c2)
-  quad of the chunk, and one launch of G at depth 2 on those quads. The
-  host enumerates triangles instead of quads. The engine takes it at k = 6
+  the card once; one launch of kernel Q's count
+  (ops/cuda_cliquebig.py::quad_count) gives each task's quads, scanned on
+  the card into int64 offsets, from which the chunks are cut (the host
+  reads back their ends alone); each chunk is one launch of Q's emit
+  (quad_emit), which writes every (edge row, c1, c2) quad of the chunk,
+  and one launch of G at depth 2 on those quads. The host enumerates
+  triangles instead of quads. The engine takes it at k = 6
   when the native library is there, the y₂ table fits Y2FULL_BUDGET and
   there are at least DEV6_MIN_TRIS triangle tasks; either path gives the
   same count.
@@ -75,7 +78,7 @@ from .. import native_bridge
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
 from .cliquek import _core_bitmaps
-from .cuda_cliquebig import quad_emit, quad_offsets
+from .cuda_cliquebig import quad_count, quad_emit, quad_offsets
 from .cuda_cliquek import lo_popcount, lo_runs
 from .cuda_gram import K_LIMIT, bit_gram, plan_gram
 
@@ -357,7 +360,8 @@ class CliqueBigEngine:
         "host"), hi_total and lo_total, dispatches (calls of G, L and Q by
         "hi", "lo" and "quad"), kernel_ms (their device ms, on the card),
         count_s and, on the native path, stream_s (host seconds of the hi
-        part, its kernels enqueued, and of the lo part)."""
+        part, its kernels enqueued, and of the lo part; at k = 6 also the
+        hi part's steps, _hi6_device)."""
         from ..utils.profiling import PROFILER
         t0 = time.perf_counter()
         k = self.k
@@ -402,38 +406,59 @@ class CliqueBigEngine:
         PROFILER.seconds["count"] += self.count_s
         for name, ms in self.kernel_ms.items():
             PROFILER.seconds[f"device_{name}"] += ms / 1e3
+        for name, sec in self.stream_s.items():
+            PROFILER.seconds[f"host_{name}"] += sec
         return self.hi_total + self.lo_total + self.tail_total
 
     def _hi6_device(self) -> bool:
         """The k = 6 hi part by kernels Q and G (see the module docstring),
-        when the engine takes that path; False (nothing run) otherwise."""
+        when the engine takes that path; False (nothing run) otherwise.
+        Adds the host seconds of its steps to stream_s: hi_estimate (the
+        triangle-task estimate, count_multi), then on the device path
+        hi_triangles, hi_h2d and hi_offsets (quad_chunks) and hi_quad_gram
+        (the Q and G launches)."""
         if self.k != 6 or self.n_core_edges == 0 or \
                 self.n_core_edges * self.words * 4 > self.Y2FULL_BUDGET:
             return False
+        t0 = time.perf_counter()
         est = native_bridge.count_multi([self.bm_np, self.bm_np],
                                         [self.ea, self.eb], self.words, self.c)
+        self.stream_s["hi_estimate"] = time.perf_counter() - t0
         if int(est.sum(dtype=np.int64)) < self.DEV6_MIN_TRIS:
             return False
         self.path = "device"
+        t0 = time.perf_counter()
         for args in self.quad_chunks():
             r, cols = self._timed("quad", lambda: quad_emit(*args))
             if r.numel():
                 self._hi(r, cols)
             del r, cols
+        self.stream_s["hi_quad_gram"] = time.perf_counter() - t0 - sum(
+            self.stream_s[key] for key in ("hi_triangles", "hi_h2d",
+                                           "hi_offsets"))
         return True
 
     def quad_chunks(self):
         """Kernel Q's arguments (y2full, core, erow, c1, off, n_bits,
         n_quads) on the device, chunk by chunk, for the k = 6 device path:
         the y₂ rows of every core edge (gathered and ANDed on the card),
-        the triangle tasks (edge row, c1) by the native expander and their
-        quad counts (count_multi), cut into chunks of at most T6 tasks and
-        CAP6 quads. Sets n_tri_tasks and n_hi_tasks (the quads)."""
+        the triangle tasks (edge row, c1) by the native expander, their
+        quad counts by one quad_count launch and off, their int64 scan, on
+        the card, cut into chunks of at most T6 tasks and CAP6 quads
+        (chunk_bounds: the host reads back the chunks' ends alone). Sets
+        n_tri_tasks, n_hi_tasks (the quads) and the host seconds
+        stream_s["hi_triangles"], ["hi_h2d"] and ["hi_offsets"]."""
         if not 4096 <= self.CAP6 <= K_LIMIT // 2:
             raise ValueError(f"CAP6 {self.CAP6}: a chunk must take a task's "
                              "quads (<= 4096) and stay within kernel G's "
                              "task limit")
         dev = self.device
+        t0 = time.perf_counter()
+        parts = [np.ascontiguousarray(st[:, 2:4])
+                 for st in self._stream(1, self.c, 3)]
+        tris = (np.concatenate(parts) if parts
+                else np.zeros((0, 2), np.int32))
+        t1 = time.perf_counter()
         ea_d = torch.from_numpy(self.ea).to(dev)
         eb_d = torch.from_numpy(self.eb).to(dev)
         y2full = torch.empty((self.n_core_edges, self.words),
@@ -443,30 +468,21 @@ class CliqueBigEngine:
                               self.bm[eb_d[s:s + EXPAND_CHUNK]],
                               out=y2full[s:s + EXPAND_CHUNK])
         del ea_d, eb_d
-        parts = [np.ascontiguousarray(st[:, 2:4])
-                 for st in self._stream(1, self.c, 3)]
-        tris = (np.concatenate(parts) if parts
-                else np.zeros((0, 2), np.int32))
-        terow = np.ascontiguousarray(tris[:, 0])
-        tc1 = np.ascontiguousarray(tris[:, 1])
-        counts = native_bridge.count_multi(
-            [self.bm_np, self.bm_np, self.core_np],
-            [self.ea[terow], self.eb[terow], tc1], self.words, self.c)
-        csum = quad_offsets(counts)
-        self.n_tri_tasks = tris.shape[0]
-        self.n_hi_tasks = int(csum[-1])
-        erow_d = torch.from_numpy(terow).to(dev)
-        c1_d = torch.from_numpy(tc1).to(dev)
-        off_d = torch.from_numpy(csum).to(dev)
-        b, n_tri = 0, tris.shape[0]
-        while b < n_tri:
-            # the largest e with quads <= CAP6 and e - b <= T6
-            e = int(np.searchsorted(csum, csum[b] + self.CAP6,
-                                    side="right")) - 1
-            e = min(max(e, b + 1), b + self.T6, n_tri)
-            yield (y2full, self.core, erow_d[b:e], c1_d[b:e],
-                   off_d[b:e + 1], self.c, int(csum[e] - csum[b]))
-            b = e
+        erow_d = torch.from_numpy(np.ascontiguousarray(tris[:, 0])).to(dev)
+        c1_d = torch.from_numpy(np.ascontiguousarray(tris[:, 1])).to(dev)
+        del parts, tris
+        t2 = time.perf_counter()
+        off = quad_offsets(quad_count(y2full, self.core, erow_d, c1_d,
+                                      self.c))
+        bounds = chunk_bounds(off, self.T6, self.CAP6)
+        self.n_tri_tasks = erow_d.shape[0]
+        self.n_hi_tasks = sum(q for _, _, q in bounds)
+        t3 = time.perf_counter()
+        self.stream_s.update(hi_triangles=t1 - t0, hi_h2d=t2 - t1,
+                             hi_offsets=t3 - t2)
+        for b, e, q in bounds:
+            yield (y2full, self.core, erow_d[b:e], c1_d[b:e], off[b:e + 1],
+                   self.c, q)
 
     def _staging(self, rows: int, width: int) -> _Staging:
         st = self._staging_bufs
@@ -551,6 +567,23 @@ class CliqueBigEngine:
             top.append(np.arange(self.n_core_edges, dtype=np.int32))
         yield from rec(0, top)
         yield from flush()
+
+
+def chunk_bounds(off: torch.Tensor, max_tasks: int, max_quads: int):
+    """[(b, e, quads)]: the k = 6 device path's chunks of tasks [b, e) over
+    off (int64 [T + 1], the scan of the tasks' quad counts, on any device),
+    in order and covering every task: each the longest run from the last
+    chunk's end with at most max_tasks tasks and max_quads quads (at least
+    one task). One read from the device a chunk (its end and off there)."""
+    n = off.shape[0] - 1
+    out, b, ob = [], 0, 0
+    while b < n:
+        e = torch.searchsorted(off, ob + max_quads, right=True) - 1
+        e = e.clamp(min=b + 1, max=min(b + max_tasks, n))
+        e, oe = (int(v) for v in torch.stack([e, off[e]]).tolist())
+        out.append((b, e, oe - ob))
+        b, ob = e, oe
+    return out
 
 
 def cliquebig_count(g, k: int, core: int = CORE, hi: Optional[int] = None,

@@ -6,10 +6,14 @@ host-streamed path and the device path (kernels Q and G) in turns (host,
 device, device, host), then the device path at each CAP6 of --caps; at
 k >= 7 the engine's one path, twice. Each count is checked against GOLDEN
 where the scale has one, and printed with its host seconds (the whole
-count, and its hi and lo parts: stream_s), the device ms of its G, L and Q
-launches (CUDA events, kernel_ms), its task counts, dispatches and launches
-and the peak device memory; the build with its prep and tail seconds.
-The kernels are built before the first timing.
+count, and its hi and lo parts: stream_s; at k = 6 also the hi part's
+steps: the triangle-task estimate by count_multi, and on the device path
+the triangle stream, the copies to the card, Q's offsets (one count
+launch, the scan and the chunk ends read back) and the Q and G launches),
+the device ms of its G, L and Q launches (CUDA events, kernel_ms), its
+task counts, dispatches and launches and the peak device memory; the
+build with its prep and tail seconds. The kernels are built before the
+first timing.
 
     python -m graphminer_tpu_torch.scripts.prof_cliquebig [--device cuda|cpu]
         [--k 6] [--scales 10 12 14 16] [--caps 16777216 268435456]
@@ -24,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..io.synth import rmat
 from ..ops.cliquebig import CliqueBigEngine
-from ..ops.cuda_cliquebig import quad_emit
+from ..ops.cuda_cliquebig import quad_count, quad_emit
 from ..ops.cuda_cliquek import lo_popcount
 from ..ops.cuda_gram import bit_gram
 
@@ -39,7 +43,7 @@ FORCE = {"host": 1 << 62, "device": 0}
 def timed_count(eng, dev, scale: int, label: str) -> dict:
     """One count with its statistics; raises on a count that disagrees
     with GOLDEN."""
-    wrappers = (bit_gram, lo_popcount, quad_emit)
+    wrappers = (bit_gram, lo_popcount, quad_emit, quad_count)
     before = [f.launches for f in wrappers]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -58,9 +62,9 @@ def timed_count(eng, dev, scale: int, label: str) -> dict:
     if want is not None and total != want:
         raise RuntimeError(f"rmat{scale} k={eng.k}: {total} != {want}")
     print(f"  {label}: {total} ({'golden' if want else 'no golden'}) path "
-          f"{eng.path} count {eng.count_s:.3f} s (hi "
-          f"{eng.stream_s.get('hi', 0.0):.3f} s, lo "
-          f"{eng.stream_s.get('lo', 0.0):.3f} s) device ms "
+          f"{eng.path} count {eng.count_s:.3f} s (host s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in eng.stream_s.items())
+          + ") device ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in eng.kernel_ms.items())
           + f"; hi tasks {eng.n_hi_tasks}, lo tasks {eng.n_lo_tasks}, "
           f"triangle tasks {eng.n_tri_tasks}, "

@@ -9,8 +9,8 @@ clock. time_ms times a repeated call the same way (on the card the event
 pair also spans the host's dispatch of the call), device_ms gives the
 device time alone and the device operations a call runs (torch.profiler),
 bound_ms gives the least time an H100 SXM could take for a given work, and
-gram_bounds and quad_bytes put kernel G's and kernel Q's work in its
-terms.
+gram_bounds, quad_bytes and quad_count_bytes put kernel G's and kernel Q's
+work in its terms.
 Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
@@ -143,16 +143,30 @@ def gram_bounds(base, mask, n_tiles: int, tile: int, *, r=None, tab=None,
             "full": bound_ms(nbytes, ops_full)}
 
 
-def quad_bytes(y2, core, erow, c1, n_quads: int) -> int:
-    """The bytes kernel Q (ops/cuda_cliquebig.py::quad_emit) must move for
-    one call: each task's ids and offset (4 + 4 + 8 B), each distinct y2
-    and core row a valid task names read once (the row's words up to
-    n_bits, here all of them), and 12 B written a quad."""
+def _distinct_row_bytes(y2, core, erow, c1) -> int:
+    """Each distinct y2 and core row a valid task names, read once (the
+    row's words up to n_bits, here all of them)."""
     r, c = erow.long(), c1.long()
     ok = (r >= 0) & (r < y2.shape[0]) & (c >= 0) & (c < core.shape[0])
     rows = int(torch.unique(r[ok]).numel()) + \
         int(torch.unique(c[ok]).numel())
-    return 16 * r.numel() + rows * y2.shape[1] * 4 + 12 * n_quads
+    return rows * y2.shape[1] * 4
+
+
+def quad_bytes(y2, core, erow, c1, n_quads: int) -> int:
+    """The bytes kernel Q's emit (ops/cuda_cliquebig.py::quad_emit) must
+    move for one call: each task's ids and offset (4 + 4 + 8 B), each
+    distinct y2 and core row a valid task names read once, and 12 B
+    written a quad."""
+    return 16 * erow.numel() + _distinct_row_bytes(y2, core, erow, c1) + \
+        12 * n_quads
+
+
+def quad_count_bytes(y2, core, erow, c1) -> int:
+    """The bytes kernel Q's count (ops/cuda_cliquebig.py::quad_count) must
+    move for one call: each task's ids (4 + 4 B) and its count (4 B), and
+    each distinct y2 and core row a valid task names read once."""
+    return 12 * erow.numel() + _distinct_row_bytes(y2, core, erow, c1)
 
 
 def time_ms(fn, device, reps: int = 11):

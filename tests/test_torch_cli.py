@@ -50,7 +50,7 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert set(prof["kernel_launches"]) == {
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
         "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram",
-        "quad_emit"}
+        "quad_emit", "quad_count"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):
@@ -108,3 +108,6 @@ def test_clique_fast_cpu_agrees_with_jax(small, capsys, k):
     assert prof["device"] == "cpu"
     assert prof["counters"]["edge_tasks"] > 0
     assert set(prof["kernel_launches"].values()) == {0}
+    if k == "6":        # the large-clique count's host split
+        assert {"host_hi", "host_lo", "host_hi_estimate"} <= \
+            set(prof["phases_s"])

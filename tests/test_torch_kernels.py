@@ -625,12 +625,13 @@ def test_hub_core_spoke_on_x(dev):
         TriangleEngine(g, core=1024, device="cpu").count_core()
 
 
-def quad_case(rng, dev, w, n=20000, e=5000, c=3000):
+def quad_case(rng, dev, w, n=20000, e=5000, c=3000, shift=0):
     """Q's inputs: rows with bit 31 in play, ids outside their tables,
     n_bits inside a word; off from the tasks' bit counts (0 for a task
-    with an invalid id), starting past 2^31."""
-    y2 = torch.from_numpy(words(rng, e, w)).to(dev)
-    core = torch.from_numpy(words(rng, c, w)).to(dev)
+    with an invalid id), starting past 2^31. With shift > 0 the rows are
+    views that start `shift` words into wider tables."""
+    y2 = torch.from_numpy(words(rng, e, w + shift)).to(dev)[:, shift:]
+    core = torch.from_numpy(words(rng, c, w + shift)).to(dev)[:, shift:]
     erow = rng.integers(-2, e + 2, n).astype(np.int32)
     c1 = rng.integers(-2, c + 2, n).astype(np.int32)
     erow[::41] = SENTINEL
@@ -640,9 +641,10 @@ def quad_case(rng, dev, w, n=20000, e=5000, c=3000):
          core.cpu().numpy()[np.where(ok, c1, 0)])
     bits = np.unpackbits(y.view(np.uint8), axis=1, bitorder="little")
     counts = bits[:, :n_bits].sum(axis=1) * ok
-    off = cuda_cliquebig.quad_offsets(counts) + (1 << 31) + 3
+    off = cuda_cliquebig.quad_offsets(torch.from_numpy(counts)) + \
+        (1 << 31) + 3
     t = lambda a: torch.from_numpy(a).to(dev)
-    return y2, core, t(erow), t(c1), t(off), n_bits
+    return y2, core, t(erow), t(c1), off.to(dev), n_bits
 
 
 @pytest.mark.parametrize("w", [8, 32, 128])
@@ -661,6 +663,95 @@ def test_quad_emit(dev, w):
     r, cols = cuda_cliquebig.quad_emit(y2, core, erow[:0], c1[:0], off[:1],
                                        n_bits)
     assert r.numel() == 0 and cuda_cliquebig.quad_emit.launches == before + 1
+
+
+@pytest.mark.parametrize("w,shift", [(8, 0), (32, 4), (128, 0), (128, 4),
+                                     (160, 0)])
+def test_quad_count(dev, w, shift):
+    """Q's count == its plain version and the bit counts, one launch a
+    call, on aligned tables and on views 4 words into wider ones, and on
+    rows wider than one warp load (160 words); the emit == plain on the
+    same."""
+    rng = np.random.default_rng(100 + w + shift)
+    y2, core, erow, c1, off, n_bits = quad_case(rng, dev, w, shift=shift)
+    before = cuda_cliquebig.quad_count.launches
+    got = cuda_cliquebig.quad_count(y2, core, erow, c1, n_bits)
+    assert cuda_cliquebig.quad_count.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, cuda_cliquebig.quad_count_plain(
+        y2, core, erow, c1, n_bits))
+    assert torch.equal(got.long(), off[1:] - off[:-1])
+    args = (y2, core, erow, c1, off, n_bits)
+    for kv, pv in zip(cuda_cliquebig.quad_emit(*args),
+                      cuda_cliquebig.quad_emit_plain(*args)):
+        assert torch.equal(kv, pv)
+    assert cuda_cliquebig.quad_count(y2, core, erow[:0], c1[:0],
+                                     n_bits).numel() == 0
+    assert cuda_cliquebig.quad_count.launches == before + 1
+
+
+@pytest.mark.parametrize("w,shift", [(5, 0), (128, 1), (32, 2)])
+def test_quad_refuses_unaligned(dev, w, shift):
+    """Q reads 16-byte words: a width, a row stride or a table start that
+    is not 16-byte aligned makes both wrappers raise, launching nothing."""
+    rng = np.random.default_rng(300 + w + shift)
+    y2, core, erow, c1, off, n_bits = quad_case(rng, dev, w, n=500,
+                                                shift=shift)
+    before = (cuda_cliquebig.quad_count.launches,
+              cuda_cliquebig.quad_emit.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_cliquebig.quad_count(y2, core, erow, c1, n_bits)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_cliquebig.quad_emit(y2, core, erow, c1, off, n_bits)
+    assert (cuda_cliquebig.quad_count.launches,
+            cuda_cliquebig.quad_emit.launches) == before
+
+
+def test_quad_emit_rounds(dev):
+    """Tiles that stage in rounds: tasks of 4096 quads (every bit of a
+    128-word row) at unaligned offsets, a tile with no quads, unsorted
+    erow, one task of each row, then runs of equal erow."""
+    rng = np.random.default_rng(7)
+    w, e, c = 128, 300, 200
+    y2 = words(rng, e, w) & words(rng, e, w)
+    core = words(rng, c, w)
+    y2[0], core[0] = -1, -1                       # 4096 quads
+    y2[1] = 0                                     # none
+    erow = rng.integers(0, e, 3000).astype(np.int32)
+    c1 = rng.integers(0, c, 3000).astype(np.int32)
+    erow[:128] = 1                                # a tile with no quads
+    erow[130:160:3], c1[130:160:3] = 0, 0
+    erow[1000:2000] = np.sort(erow[1000:2000])    # runs of equal erow
+    erow[2500:2503], c1[2500:2503] = 0, 0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    y2, core, erow, c1 = t(y2), t(core), t(erow), t(c1)
+    counts = cuda_cliquebig.quad_count(y2, core, erow, c1, 32 * w)
+    assert int(counts.max()) == 32 * w and int(counts[:128].sum()) == 0
+    off = cuda_cliquebig.quad_offsets(counts) + 1
+    args = (y2, core, erow, c1, off, 32 * w)
+    for kv, pv in zip(cuda_cliquebig.quad_emit(*args),
+                      cuda_cliquebig.quad_emit_plain(*args)):
+        assert torch.equal(kv, pv)
+
+
+def test_quad_kernels_one_kernel_a_call(dev):
+    """A quad_count call and a quad_emit call each run their kernel and no
+    other device op; each launches once a call."""
+    rng = np.random.default_rng(9)
+    y2, core, erow, c1, off, n_bits = quad_case(rng, dev, 128)
+    n_q = int(off[-1] - off[0])
+    for fn, name, key in (
+            (lambda: cuda_cliquebig.quad_count(y2, core, erow, c1, n_bits),
+             "quad_count", "quad_count_kernel"),
+            (lambda: cuda_cliquebig.quad_emit(y2, core, erow, c1, off,
+                                              n_bits, n_q),
+             "quad_emit", "quad_emit_kernel")):
+        wrapper = getattr(cuda_cliquebig, name)
+        before = wrapper.launches
+        ops = _device_ops(fn)
+        assert wrapper.launches == before + 50
+        assert len(ops) == 1 and 0.9 <= next(iter(ops.values())) <= 1.0, ops
+        assert key in next(iter(ops)), ops
 
 
 @pytest.mark.parametrize("depth", [2, 3, 4])
@@ -704,7 +795,8 @@ def kernel_events(fn):
     names = collections.Counter(
         e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
     out = {}
-    for key in ("bit_gram_kernel", "lo_popcount_kernel", "quad_emit_kernel"):
+    for key in ("bit_gram_kernel", "lo_popcount_kernel", "quad_emit_kernel",
+                "quad_count_kernel"):
         out[key] = sum(n for name, n in names.items() if key in name)
     return val, out
 
@@ -714,8 +806,9 @@ def test_cliquebig_engine_on_card(dev, k, device_path):
     """rmat12 with a small core (lo tasks and a tail) and small dispatches:
     the card's count equals the CPU's, at two dispatch sizes (the pinned
     buffers are refilled under asynchronous copies); one G launch a hi
-    dispatch, one L launch a lo dispatch and one Q launch a chunk, by the
-    wrappers' counts and by torch.profiler."""
+    dispatch, one L launch a lo dispatch, one Q emit launch a chunk and one
+    Q count launch a count on the device path, by the wrappers' counts and
+    by torch.profiler."""
     from unittest import mock
     from graphminer_tpu_torch.ops import cliquebig
     g = rmat(12, 8, seed=23)
@@ -730,16 +823,19 @@ def test_cliquebig_engine_on_card(dev, k, device_path):
         with mock.patch.object(cliquebig, "DISPATCH_TASKS", d):
             before = (cuda_gram.bit_gram.launches,
                       cuda_cliquek.lo_popcount.launches,
-                      cuda_cliquebig.quad_emit.launches)
+                      cuda_cliquebig.quad_emit.launches,
+                      cuda_cliquebig.quad_count.launches)
             got, ev = kernel_events(eng.count)
             after = (cuda_gram.bit_gram.launches,
                      cuda_cliquek.lo_popcount.launches,
-                     cuda_cliquebig.quad_emit.launches)
+                     cuda_cliquebig.quad_emit.launches,
+                     cuda_cliquebig.quad_count.launches)
         assert got == want
         assert eng.path == ("device" if device_path else "host")
         disp = eng.dispatches
-        n = (disp.get("hi", 0), disp.get("lo", 0), disp.get("quad", 0))
+        n = (disp.get("hi", 0), disp.get("lo", 0), disp.get("quad", 0),
+             int(device_path))
         assert tuple(a - b for a, b in zip(after, before)) == n
         assert (ev["bit_gram_kernel"], ev["lo_popcount_kernel"],
-                ev["quad_emit_kernel"]) == n
+                ev["quad_emit_kernel"], ev["quad_count_kernel"]) == n
         assert n[0] > 0 and n[1] > 0 and (n[2] > 0) == device_path
