@@ -7,15 +7,17 @@ Drives the port's paths — exact triangle counting on RMAT scale 18, edge
 factor 16, seed 7 (82,947,332 triangles) through the stream, ring,
 hub-core and hybrid engines and the generic set-operation path, the
 three probe scripts, the generic clique and SgL counts, the fast 4- and
-5-clique engine on the same graph (2,280,263,816 and 55,374,832,965) and
+5-clique engine on the same graph (2,280,263,816 and 55,374,832,965),
 the large-clique engine (k = 6 at rmat14 and rmat16, k = 7 and 8 at
-rmat12) — and fails (non-zero exit, no result line) when any phase fails:
+rmat12) and the fast diamond and rectangle engines (45,873,513,836
+diamonds and 51,349,430,411 4-cycles at rmat18) — and fails (non-zero
+exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
   3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q (its count
-     and its emit) against their
+     and its emit; S, P, I and W in phase 15) against their
      plain PyTorch versions on the card, exactly: random inputs over every
      width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
@@ -59,7 +61,8 @@ rmat12) — and fails (non-zero exit, no result line) when any phase fails:
      clique 4 and 5 on rmat14 (36,628,817 and 387,027,732) generic and
      with --fast (CliqueKEngine: X once at build, G once, L once where
      there are lo tasks), sgl diamond and rectangle on rmat12 (57,515,371 and
-     52,988,519), each against its golden, with its run_s;
+     52,988,519) generic and with --fast (S once; X twice), each against
+     its golden, with its run_s;
  10. holds the frontier's map engine against its compact engine on the
      card at rmat10, cliques k = 3-5 and the four SGL plans;
  11. holds every set operation, both backends, on the card against the
@@ -90,9 +93,19 @@ rmat12) — and fails (non-zero exit, no result line) when any phase fails:
      dispatch, Q's emit once a chunk and Q's count once (the device path
      only), and prints its prep, tail and count seconds, the host split of
      its hi part, task counts, launches, device ms of G, L and Q (CUDA
-     events) and peak device memory.
+     events) and peak device memory;
+ 15. runs the fast SgL engines: holds S, P and I against their plain
+     versions on every task class of the rmat14 tri_support and W on the
+     first and last case-B chunk of rmat14; tri_support at rmat14 and
+     rmat18 (S, P and I once each; the sum of tri three times the
+     triangle golden) and the rmat18 diamonds; rectangle_count_fast at
+     rmat12, 13, 14 and 18 against bench.py:82-85 (W once a case-B chunk
+     with a sub neighbour, nothing else of ours but X); the rmat18 counts
+     once more under torch.profiler (host s, device ms, busy share); and
+     S, P, I and W timed at rmat18 beside their bounds, with the Gram and
+     case B beside their int8 operation bounds.
 
-Each path of phases 2, 4-6, 8 and 12-14 runs with every launch count set to
+Each path of phases 2, 4-6, 8 and 12-15 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The rmat12, rmat14, rmat18 and rmat20 graphs are written
@@ -170,6 +183,22 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/quad_emit.cu",
         "replaces": "graphminer_tpu/ops/cliquebig.py:161"},
+    "tri_bitmap": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/tri_support.cu",
+        "replaces": "graphminer_tpu/ops/tri_support.py:79"},
+    "tri_probe": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/tri_support.cu",
+        "replaces": "graphminer_tpu/ops/tri_support.py:110"},
+    "tri_lists": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/tri_support.cu",
+        "replaces": "graphminer_tpu/ops/tri_support.py:135"},
+    "bit_colsum": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/bit_colsum.cu",
+        "replaces": "graphminer_tpu/ops/rectangle.py:149"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
@@ -232,9 +261,10 @@ def wrappers():
     """{kernel name: wrapper} for every kernel that counts its launches in
     process (kernel A's count comes from the CLI's own process)."""
     from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
-                                          cuda_cliquek, cuda_expand,
-                                          cuda_gram, cuda_hubcore,
-                                          cuda_ring, cuda_stream,
+                                          cuda_cliquek, cuda_colsum,
+                                          cuda_expand, cuda_gram,
+                                          cuda_hubcore, cuda_ring,
+                                          cuda_stream, cuda_tri,
                                           cuda_window, fetch)
     return {"stream_bucket_count": cuda_stream.stream_bucket_count,
             "ring_phase_c": cuda_ring.ring_phase_c,
@@ -247,7 +277,11 @@ def wrappers():
             "lo_popcount": cuda_cliquek.lo_popcount,
             "bit_gram": cuda_gram.bit_gram,
             "quad_emit": cuda_cliquebig.quad_emit,
-            "quad_count": cuda_cliquebig.quad_count}
+            "quad_count": cuda_cliquebig.quad_count,
+            "tri_bitmap": cuda_tri.tri_bitmap,
+            "tri_probe": cuda_tri.tri_probe,
+            "tri_lists": cuda_tri.tri_lists,
+            "bit_colsum": cuda_colsum.bit_colsum}
 
 
 def reset_counts():
@@ -1622,14 +1656,17 @@ def run_hybrid20():
 
 
 #: the CLI runs of phase 9: (scale, verb arguments, golden); all but the
-#: --fast cliques (CliqueKEngine) take the generic path
+#: --fast ones (CliqueKEngine, the diamond and rectangle engines) take the
+#: generic path
 GENERIC_CLI = ((18, ("tc",), GOLDEN[18]),
                (14, ("clique", "4"), 36_628_817),
                (14, ("clique", "5"), 387_027_732),
                (14, ("clique", "4", "--fast"), 36_628_817),
                (14, ("clique", "5", "--fast"), 387_027_732),
                (12, ("sgl", "diamond"), 57_515_371),
-               (12, ("sgl", "rectangle"), 52_988_519))
+               (12, ("sgl", "rectangle"), 52_988_519),
+               (12, ("sgl", "diamond", "--fast"), 57_515_371),
+               (12, ("sgl", "rectangle", "--fast"), 52_988_519))
 
 
 def run_generic_cli(n_lo14):
@@ -1654,8 +1691,9 @@ def run_generic_cli(n_lo14):
         res = json.loads(r.stdout.strip().splitlines()[-1])
         prof = res["profile"]
         fast = "--fast" in args
-        say(f"[{CARD}] CLI {' '.join(args)} rmat{scale} "
-            f"({'CliqueKEngine' if fast else 'generic'}, cuda): "
+        engine = ("generic" if not fast else "CliqueKEngine"
+                  if args[0] == "clique" else f"fast {args[1]}")
+        say(f"[{CARD}] CLI {' '.join(args)} rmat{scale} ({engine}, cuda): "
             f"total={res['total']} run_s={res['run_s']} "
             f"load_s={res['load_s']} device_count_s="
             f"{prof['phases_s'].get('device_count')} device={prof['device']}"
@@ -1664,14 +1702,25 @@ def run_generic_cli(n_lo14):
         check(prof["device"] == "cuda", f"CLI {args} ran on {prof['device']}")
         check(res["total"] == want, f"CLI {args} rmat{scale} total "
               f"{res['total']} != {want}")
-        x_l_g = [prof["kernel_launches"][k] for k in ("expand_bits",
-                                                       "lo_popcount",
-                                                       "bit_gram")]
-        # X: never (build and count); L: once, unless the engine has no lo
-        # task; G: once
-        check(x_l_g == [0, int(n_lo14[int(args[1])] > 0), 1]
-              if fast else not any(x_l_g),
-              f"CLI {args}: launches of X, L and G {x_l_g}")
+        kl = prof["kernel_launches"]
+        x_l_g = [kl[k] for k in ("expand_bits", "lo_popcount", "bit_gram")]
+        s_p_i_w = [kl[k] for k in ("tri_bitmap", "tri_probe", "tri_lists",
+                                   "bit_colsum")]
+        if args[0] == "sgl" and fast:
+            # rmat12's 4096 ids are all core: S once for the diamonds, and
+            # for the 4-cycles case A alone (X twice: Accᵀ and M)
+            check((x_l_g, s_p_i_w) ==
+                  (([0, 0, 0], [1, 0, 0, 0]) if args[1] == "diamond" else
+                   ([2, 0, 0], [0, 0, 0, 0])),
+                  f"CLI {args}: launches of X, L, G {x_l_g}, of S, P, I, "
+                  f"W {s_p_i_w}")
+        else:
+            # X: never (build and count); L: once, unless the engine has no
+            # lo task; G: once
+            check(x_l_g == [0, int(n_lo14[int(args[1])] > 0), 1]
+                  if fast else not any(x_l_g),
+                  f"CLI {args}: launches of X, L and G {x_l_g}")
+            check(not any(s_p_i_w), f"CLI {args}: S, P, I, W {s_p_i_w}")
         out[" ".join(args)] = res["run_s"]
     say(f"generic CLI phase: {time.perf_counter() - t0:.1f} s")
     return out
@@ -2111,6 +2160,223 @@ def run_cliquebig():
     return res, launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: the fast SgL engines (diamond and rectangle)
+# --------------------------------------------------------------------------
+
+#: rmat(18, 16, seed=7) diamonds (BENCH_r05.json, diamond_count_rmat18)
+GOLDEN_DIAMOND18 = 45_873_513_836
+#: rmat(scale, 16, seed=7) 4-cycles (bench.py:82-85)
+GOLDEN_RECT = {12: 52_988_519, 13: 172_972_822, 14: 571_816_674,
+               18: 51_349_430_411}
+SGL_KERNELS = ("tri_bitmap", "tri_probe", "tri_lists", "bit_colsum")
+
+
+def sgl_inputs(g, core=4096):
+    """The arguments that tri_support gives kernels S, P and I (all tasks,
+    the sc tasks, the ss tasks) and the pieces of rectangle's case B, built
+    as the two engines build them, on the card."""
+    from types import SimpleNamespace
+    from graphminer_tpu_torch.ops import tri_support as ts
+    from graphminer_tpu_torch.ops.cuda_tri import FtLists
+    rg = g.relabel_by_degree(descending=False)
+    c, cs, words = ts.core_split(rg, core)
+    table = torch.from_numpy(ts._pack_full_core_bitmaps(rg, cs, words)).cuda()
+    deg, core_nb = ts.core_neighbours(rg, cs)
+    ftw = deg - core_nb
+    ft = FtLists.from_csr(rg.rowptr, rg.colidx, ftw, "cuda")
+    src, dst = rg.orientation().edge_list()
+    src, dst = src.astype(np.int64), dst.astype(np.int64)
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()
+    cc = src >= cs
+    sc, ss = ~cc & (dst >= cs), ~cc & (dst < cs)
+    keep = np.nonzero((core_nb >= 2) & (np.arange(rg.n_vertices) < cs))[0]
+    return SimpleNamespace(
+        c=c, cs=cs, words=words, table=table, ft=ft, ftw=ftw[:cs], keep=keep,
+        s=(table, t(src), t(dst)), p=(ft, table, t(src[sc]), t(dst[sc] - cs)),
+        i=(ft, t(src[ss]), t(dst[ss])),
+        w_chunks=sum(bool(ftw[a:min(cs, a + 4096)].any())
+                     for a in range(0, cs, 4096)),
+        n_tasks=(int(src.size), int(sc.sum()), int(ss.sum())))
+
+
+def w_args(inp, last=True):
+    """Kernel W's arguments on one case-B chunk of CHUNK_U sub-core u, the
+    last (densest) or the first."""
+    from graphminer_tpu_torch.ops.rectangle import CHUNK_U
+    a = max(0, inp.cs - CHUNK_U) if last else 0
+    u = torch.arange(a, min(inp.cs, a + CHUNK_U), dtype=torch.int32,
+                     device="cuda")
+    return inp.ft, inp.table, u
+
+
+def profiled_count(label, fn, want):
+    """One more call of fn() under torch.profiler (device activity only):
+    its value must be `want`; prints its host seconds, the device time of
+    its events and their share of the call (the device-busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    check(got == want, f"{label}: {got} != {want}")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in dev)
+    by = {}
+    for e in dev:
+        by[e.name[:40]] = by.get(e.name[:40], 0) + e.time_range.elapsed_us()
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    say(f"[{CARD}] {label} (profiled): host {host:.3f} s, device "
+        f"{us / 1e3:.3f} ms in {len(dev)} events, busy "
+        f"{us / 1e6 / host:.4f}; top: " +
+        ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+
+
+def sgl_kernel_checks(inp, label):
+    """S, P and I against their plain versions on every task class of
+    `inp`, and W on its last and first case-B chunk."""
+    from graphminer_tpu_torch.ops import cuda_colsum, cuda_tri
+    for name, fn, plain, args in (
+            ("tri_bitmap", cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
+             inp.s),
+            ("tri_probe", cuda_tri.tri_probe, cuda_tri.tri_probe_plain,
+             inp.p),
+            ("tri_lists", cuda_tri.tri_lists, cuda_tri.tri_lists_plain,
+             inp.i)):
+        compare(name, fn(*args), plain(*args),
+                f"{label}, {args[-1].numel()} tasks")
+    for last in (True, False):
+        a = w_args(inp, last)
+        compare("bit_colsum", cuda_colsum.bit_colsum(*a),
+                cuda_colsum.bit_colsum_plain(*a),
+                f"{label}, case-B chunk of {a[-1].numel()} u "
+                f"({'last' if last else 'first'})")
+
+
+def sgl_timing(inp):
+    """S, P, I and W at rmat18 (W on the last case-B chunk) beside their
+    bounds and plain versions, and the Gram and the whole case B beside
+    their int8 operation bounds."""
+    from graphminer_tpu_torch.ops import cuda_colsum, cuda_tri, rectangle
+    from graphminer_tpu_torch.ops import tri_support as ts
+    from graphminer_tpu_torch.ops.cuda_expand import expand_bits
+    from graphminer_tpu_torch.utils import profiling as pf
+    res = {}
+    wa = w_args(inp)
+    for name, fn, plain, args, nbytes in (
+            ("tri_bitmap", cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
+             inp.s, pf.tri_bitmap_bytes(*inp.s)),
+            ("tri_probe", cuda_tri.tri_probe, cuda_tri.tri_probe_plain,
+             inp.p, pf.tri_probe_bytes(*inp.p)),
+            ("tri_lists", cuda_tri.tri_lists, cuda_tri.tri_lists_plain,
+             inp.i, pf.tri_lists_bytes(*inp.i)),
+            ("bit_colsum", cuda_colsum.bit_colsum,
+             cuda_colsum.bit_colsum_plain, wa, pf.colsum_bytes(*wa))):
+        k_ms, _ = time_ms(lambda: fn(*args))
+        p_ms, _ = pf.time_ms(lambda: plain(*args), "cuda", 1)
+        b = pf.bound_ms(nbytes)
+        res[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+                         bound_by=b[1], library_ms=None)
+        say(f"[{CARD}] {name} rmat18 ({args[-1].numel()} tasks, 1 launch): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} "
+            f"ms ({b[1]}, {nbytes} B)")
+    cpad = 32 * inp.words
+    g_ms, _ = time_ms(lambda: ts.gram_rows(inp.table, inp.keep, inp.words))
+    ops = 2 * cpad * cpad * inp.keep.size
+    b = pf.bound_ms(inp.keep.size * inp.words * 4 + 4 * cpad * cpad, ops)
+    say(f"[{CARD}] Gram (T4/R1: X + torch._int_mm) rmat18, "
+        f"{inp.keep.size} rows: {g_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}, "
+        f"{ops:.4e} int8 operations)")
+    acc = inp.table[inp.cs:]
+    m = torch.triu(expand_bits(acc, n_out=cpad), diagonal=1)
+    b_ms, _ = time_ms(lambda: rectangle._case_b(
+        inp.table, inp.ft, m, inp.ftw, inp.c, rectangle.CHUNK_U))
+    ops = 2 * inp.cs * cpad * cpad
+    b = pf.bound_ms(0, ops)
+    say(f"[{CARD}] rectangle case B (R3: X + torch._int_mm + W, "
+        f"{inp.w_chunks} chunks) rmat18, {inp.cs} sub-core u: {b_ms:.3f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]}, {ops:.4e} int8 operations)")
+    return res
+
+
+def run_sgl(g18):
+    """Phase 15: the diamond (tri_support) and rectangle engines against
+    their goldens, S, P, I and W against their plain versions on every
+    rmat14 task class and case-B chunks, launch counts (S, P, I once a
+    tri_support call; W once a case-B chunk with a sub neighbour), the
+    counts' host seconds, device ms and busy share, and the kernels timed
+    at rmat18. Returns (timings, {kernel: launches})."""
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import rectangle as rc
+    from graphminer_tpu_torch.ops import tri_support as ts
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(SGL_KERNELS, 0)
+    spi = list(SGL_KERNELS[:3])
+
+    def support(label, g, want_tri):
+        t0 = time.perf_counter()
+        out, _ = run_path(label, lambda: ts.tri_support(g, device="cuda"),
+                          spi)
+        host = time.perf_counter() - t0
+        got = read_counts()
+        check([got[k] for k in SGL_KERNELS] == [1, 1, 1, 0],
+              f"{label}: launches {got}")
+        for k in spi:
+            launches[k] += 1
+        check(int(out.tri.sum()) == 3 * want_tri,
+              f"{label}: sum of tri {int(out.tri.sum())} != 3 x {want_tri}")
+        return out, host
+
+    g14 = rmat(14, 16, seed=7)
+    inp14 = sgl_inputs(g14)
+    sgl_kernel_checks(inp14, "rmat14")
+    support("tri_support rmat14", g14, GOLDEN[14])
+    ts18, host = support("tri_support rmat18", g18, GOLDEN[18])
+    diamonds = ts.pairs_sum(ts18.tri)
+    check(diamonds == GOLDEN_DIAMOND18,
+          f"diamonds rmat18 {diamonds} != {GOLDEN_DIAMOND18}")
+    say(f"[{CARD}] diamonds rmat18: {diamonds} (tri_support host {host:.3f}"
+        f" s)")
+    del ts18
+    profiled_count("diamond_count_fast rmat18",
+                   lambda: ts.diamond_count_fast(g18, device="cuda"),
+                   GOLDEN_DIAMOND18)
+    inp18 = sgl_inputs(g18)
+    say(f"rmat18 tri_support tasks (all, sc, ss): {inp18.n_tasks}; Gram "
+        f"rows {inp18.keep.size}; case-B chunks with sub neighbours "
+        f"{inp18.w_chunks}")
+    for scale in (12, 13, 14, 18):
+        g = {14: g14, 18: g18}.get(scale) or rmat(scale, 16, seed=7)
+        want_w = (inp14 if scale == 14 else inp18 if scale == 18 else
+                  sgl_inputs(g)).w_chunks
+        t0 = time.perf_counter()
+        total, _ = run_path(
+            f"rectangle rmat{scale}",
+            lambda: rc.rectangle_count_fast(g, device="cuda"),
+            ["bit_colsum"] if want_w else [])
+        host = time.perf_counter() - t0
+        got = read_counts()
+        check([got[k] for k in SGL_KERNELS] == [0, 0, 0, want_w],
+              f"rectangle rmat{scale}: launches {got}, {want_w} case-B "
+              "chunks")
+        launches["bit_colsum"] += want_w
+        check(total == GOLDEN_RECT[scale],
+              f"rectangle rmat{scale}: {total} != {GOLDEN_RECT[scale]}")
+        say(f"[{CARD}] rectangle rmat{scale}: {total} in {host:.3f} s "
+            f"(host clock), W launches {want_w}")
+    profiled_count("rectangle_count_fast rmat18",
+                   lambda: rc.rectangle_count_fast(g18, device="cuda"),
+                   GOLDEN_RECT[18])
+    res = sgl_timing(inp18)
+    del inp18, inp14
+    torch.cuda.empty_cache()
+    say(f"phase 15 (fast SgL): {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def main():
     check_environment()
     build_kernels()
@@ -2152,6 +2418,9 @@ def main():
     res.update(ck_res)
     big_res, big_launches = run_cliquebig()
     res.update(big_res)
+    sgl_res, sgl_launches = run_sgl(g)
+    res.update(sgl_res)
+    launches.update(sgl_launches)
     for part in (ck_launches, big_launches):   # G: the hub-core count's too
         for key, n in part.items():
             launches[key] = launches.get(key, 0) + n

@@ -9,17 +9,20 @@ Ported so far: `tc` (the generic set-operation path; with --fast the stream
 engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
 engine; clique 3 --fast is the stream engine, clique 4|5 --fast the hi/lo
 clique engine of ops/cliquek.py, clique k >= 6 --fast the streamed
-large-clique engine of ops/cliquebig.py) and `info`, with the --cpu,
+large-clique engine of ops/cliquebig.py, sgl diamond --fast the triangle
+support engine of ops/tri_support.py and sgl rectangle --fast the 4-cycle
+engine of ops/rectangle.py) and `info`, with the --cpu,
 --json, --profile, --chunk, --backend and --engine flags (their defaults
 come from GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
-L (lo_popcount), G (bit_gram) and Q (quad_emit, quad_count) in this
+L (lo_popcount), G (bit_gram), Q (quad_emit, quad_count), S
+(tri_bitmap), P (tri_probe), I (tri_lists) and W (bit_colsum) in this
 process; on a large-clique count its phases_s also hold the host seconds
 of the count's steps (host_hi, host_lo and, at k = 6, host_hi_estimate,
 host_hi_triangles, host_hi_h2d, host_hi_offsets, host_hi_quad_gram). Without
 --cpu the count runs on CUDA, and it fails when no card is visible. Every
-other verb, the fast SgL engines, and the --sharded and --partition flags
+other verb, the fast house engine, and the --sharded and --partition flags
 are not ported yet: they exit non-zero and name ROADMAP.md, and nothing
 runs in their place.
 """
@@ -61,7 +64,8 @@ def main(argv=None):
                    help="fast engines: tc and clique 3 = stream engine, "
                         "clique 4|5 = hi/lo clique engine (CliqueKEngine), "
                         "clique k >= 6 = large-clique engine "
-                        "(CliqueBigEngine)")
+                        "(CliqueBigEngine), sgl diamond = triangle support "
+                        "engine, sgl rectangle = 4-cycle engine")
     p.add_argument("--partition", type=int, default=0, metavar="N",
                    help="(not ported)")
     p.add_argument("--profile", action="store_true",
@@ -123,11 +127,13 @@ def main(argv=None):
         import torch
         from .ops.cuda_cliquebig import quad_count, quad_emit
         from .ops.cuda_cliquek import lo_popcount
+        from .ops.cuda_colsum import bit_colsum
         from .ops.cuda_expand import expand_bits
         from .ops.cuda_gram import bit_gram
         from .ops.cuda_hubcore import hub_tail_count
         from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
         from .ops.cuda_stream import stream_bucket_count
+        from .ops.cuda_tri import tri_bitmap, tri_lists, tri_probe
         from .utils.profiling import PROFILER
         rep = PROFILER.report()
         dt = rep["phases_s"].get("device_count", 0.0)
@@ -141,7 +147,8 @@ def main(argv=None):
             f.__name__: f.launches
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
                       hub_tail_count, expand_bits, lo_popcount, bit_gram,
-                      quad_emit, quad_count)}
+                      quad_emit, quad_count, tri_bitmap, tri_probe,
+                      tri_lists, bit_colsum)}
         out["profile"] = rep
 
     if ns.json:

@@ -10,8 +10,10 @@ a hash of the source, and loads that copy. native/ itself is not touched.
 It binds orient, relabel_by_degree, sort_neighbors, edge_list, csr_from_coo,
 expand_emit (the k-clique engines' task enumerator), expand_multi (its
 (task, bit) form), count_multi (the k >= 6 engine's per-task popcount
-prepass) and kclique_dfs (an independent DFS k-clique counter that the
-tests and the smoke script hold the bitmap engines against).
+prepass), kclique_dfs (an independent DFS k-clique counter that the
+tests and the smoke script hold the bitmap engines against) and c4_anchor
+(the rectangle engine's max-anchored wedge pass, which closes its
+recursion).
 
 Every entry point returns None when the library is unavailable (no g++ or
 a failed build); core/graph.py then takes its numpy path. Which path was
@@ -115,6 +117,8 @@ def get_lib():
             pp, pp, i32p]
         lib.gm_kclique.restype = ctypes.c_int64
         lib.gm_kclique.argtypes = [ctypes.c_int64, i64p, i32p, ctypes.c_int64]
+        lib.gm_c4.restype = ctypes.c_int64
+        lib.gm_c4.argtypes = [ctypes.c_int64, i64p, i32p]
         log.info("native preprocessing: %s (%d threads)", path,
                  lib.gm_num_threads())
         _lib = lib
@@ -269,3 +273,15 @@ def kclique_dfs(rowptr: np.ndarray, colidx: np.ndarray, k: int):
     return int(lib.gm_kclique(rowptr.shape[0] - 1,
                               np.ascontiguousarray(rowptr, np.int64),
                               np.ascontiguousarray(colidx, np.int32), k))
+
+
+def c4_anchor(rowptr: np.ndarray, colidx: np.ndarray):
+    """Max-anchored 4-cycle count by the wedge pass (gm_c4): each 4-cycle
+    once, at the diagonal that holds its largest id. The rows must be
+    sorted ascending. None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return int(lib.gm_c4(rowptr.shape[0] - 1,
+                         np.ascontiguousarray(rowptr, np.int64),
+                         np.ascontiguousarray(colidx, np.int32)))

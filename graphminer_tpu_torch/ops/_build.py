@@ -115,6 +115,17 @@ _SIGNATURES = {
     # cols_out, n_blocks, stream
     "gm_quad_emit": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, _VP, _VP,
                      _VP, _I64, _VP, _VP, _I64, _VP],
+    # tab, v, words, src, dst, n, out, n_blocks, stream
+    "gm_tri_bitmap": [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _I64, _VP],
+    # rowptr, colidx, ftw, tab, v, words, u, vloc, n, out, n_blocks, stream
+    "gm_tri_probe": [_VP, _VP, _VP, _VP, _I64, _I64, _VP, _VP, _I64, _VP,
+                     _I64, _VP],
+    # rowptr, colidx, ftw, v, u, w, n, out, n_blocks, stream
+    "gm_tri_lists": [_VP, _VP, _VP, _I64, _VP, _VP, _I64, _VP, _I64, _VP],
+    # rowptr, colidx, ftw, tab, v, words, u, n, out, n_blocks, threads,
+    # stream
+    "gm_bit_colsum": [_VP, _VP, _VP, _VP, _I64, _I64, _VP, _I64, _VP, _I64,
+                      _I64, _VP],
 }
 
 

@@ -10,7 +10,8 @@ pair also spans the host's dispatch of the call), device_ms gives the
 device time alone and the device operations a call runs (torch.profiler),
 bound_ms gives the least time an H100 SXM could take for a given work, and
 gram_bounds, quad_bytes and quad_count_bytes put kernel G's and kernel Q's
-work in its terms.
+work in its terms, and tri_bitmap_bytes, tri_probe_bytes, tri_lists_bytes
+and colsum_bytes kernels S's, P's, I's and W's.
 Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
@@ -167,6 +168,55 @@ def quad_count_bytes(y2, core, erow, c1) -> int:
     move for one call: each task's ids (4 + 4 B) and its count (4 B), and
     each distinct y2 and core row a valid task names read once."""
     return 12 * erow.numel() + _distinct_row_bytes(y2, core, erow, c1)
+
+
+def _distinct_list_bytes(ft, ids) -> int:
+    """Each distinct vertex of `ids` that has a list (ops/cuda_tri.FtLists)
+    read once: rowptr[x], rowptr[x + 1] and ftw[x] (20 B) and its list's
+    ids (4 B each)."""
+    x = torch.unique(ids.long())
+    _, ln = ft.lengths(x)
+    ok = (x >= 0) & (x < ft.n_vertices)
+    return 20 * int(ok.sum()) + 4 * int(ln.sum())
+
+
+def tri_bitmap_bytes(tab, src, dst) -> int:
+    """The bytes kernel S (ops/cuda_tri.py::tri_bitmap) must move for one
+    call: each task's two ids and its result (12 B) and each distinct row
+    a valid id names read once."""
+    v = tab.shape[0]
+    ids = torch.cat([src, dst]).long()
+    ids = torch.unique(ids[(ids >= 0) & (ids < v)])
+    return 12 * src.numel() + ids.numel() * tab.shape[1] * 4
+
+
+def tri_probe_bytes(ft, tab, u, vloc) -> int:
+    """The bytes kernel P (ops/cuda_tri.py::tri_probe) must move for one
+    call: each task's ids and result (12 B), each distinct u's list once,
+    and each distinct (x, word) that a list slot probes, 4 B once."""
+    task, x = ft.slots(u)
+    ok = (x >= 0) & (x < tab.shape[0])
+    key = x[ok] * tab.shape[1] + (vloc.long()[task[ok]] >> 5)
+    return 12 * u.numel() + _distinct_list_bytes(ft, u) + \
+        4 * int(torch.unique(key).numel())
+
+
+def tri_lists_bytes(ft, u, w) -> int:
+    """The bytes kernel I (ops/cuda_tri.py::tri_lists) must move for one
+    call: each task's ids and result (12 B) and each distinct end's list
+    once."""
+    return 12 * u.numel() + _distinct_list_bytes(ft, torch.cat([u, w]))
+
+
+def colsum_bytes(ft, tab, u) -> int:
+    """The bytes kernel W (ops/cuda_colsum.py::bit_colsum) must move for one
+    call: each task's id (4 B), each distinct u's list once, each distinct
+    row a list names once, and the output written once (4 B an entry)."""
+    _, x = ft.slots(u)
+    x = torch.unique(x[(x >= 0) & (x < tab.shape[0])])
+    words = tab.shape[1]
+    return 4 * u.numel() + _distinct_list_bytes(ft, u) + \
+        x.numel() * words * 4 + u.numel() * 32 * words * 4
 
 
 def time_ms(fn, device, reps: int = 11):

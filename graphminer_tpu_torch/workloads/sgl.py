@@ -6,9 +6,10 @@ pattern dispatched by name (omp_base.cc:16-52) to generated kernels
 core.plan, or plans generated from a PatternGraph, interpreted by the
 frontier engine.
 
-The specialized fast engines (graphminer_tpu's ops/tri_support.py,
-ops/rectangle.py, ops/house.py) are not ported yet: fast=True on a pattern
-that has one raises SystemExit naming ROADMAP.md, and nothing runs in its
+fast=True routes diamond to ops/tri_support.py::diamond_count_fast and
+rectangle to ops/rectangle.py::rectangle_count_fast, on `device`. The
+house engine (graphminer_tpu's ops/house.py) is not ported yet: fast=True
+on house raises SystemExit naming ROADMAP.md, and nothing runs in its
 place.
 """
 from __future__ import annotations
@@ -18,11 +19,9 @@ from ..core.plan import SGL_PLANS, plan_from_pattern
 from ..device import DeviceLike
 from ..engine.frontier import count_pattern
 
-#: patterns with a specialized fast engine in the JAX package (name ->
-#: its module there), none ported yet
-FAST_ENGINES = {"diamond": "ops/tri_support.py",
-                "rectangle": "ops/rectangle.py",
-                "house": "ops/house.py"}
+#: patterns with a specialized fast engine in the JAX package that is not
+#: ported yet (name -> its module there)
+FAST_ENGINES = {"house": "ops/house.py"}
 
 
 def sgl_count(g, pattern, chunk: int = 1024, backend: str = "auto",
@@ -37,12 +36,18 @@ def sgl_count(g, pattern, chunk: int = 1024, backend: str = "auto",
     if backend == "fast":
         fast, backend = True, "auto"
     if fast and isinstance(pattern, str):
-        mod = FAST_ENGINES.get(pattern.lower())
+        key = pattern.lower()
+        if key == "diamond":
+            from ..ops.tri_support import diamond_count_fast
+            return diamond_count_fast(g, device=device)
+        if key == "rectangle":
+            from ..ops.rectangle import rectangle_count_fast
+            return rectangle_count_fast(g, device=device)
+        mod = FAST_ENGINES.get(key)
         if mod is not None:
             raise SystemExit(
-                f"graphminer_tpu_torch: the fast {pattern.lower()} engine "
-                f"({mod}) is not ported yet (see ROADMAP.md, queue 1 "
-                "item 6)")
+                f"graphminer_tpu_torch: the fast {key} engine ({mod}) is "
+                "not ported yet (see ROADMAP.md, queue 1 item 6c)")
     if isinstance(pattern, PatternGraph):
         plan = plan_from_pattern(pattern)
     elif pattern.startswith("@"):

@@ -50,7 +50,8 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
     assert set(prof["kernel_launches"]) == {
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
         "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram",
-        "quad_emit", "quad_count"}
+        "quad_emit", "quad_count", "tri_bitmap", "tri_probe", "tri_lists",
+        "bit_colsum"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):
@@ -70,7 +71,7 @@ def test_tc_without_card_exits_naming_cuda(prefix):
 
 @pytest.mark.parametrize("args", [
     ("tc", "--partition", "2"), ("sgl", "house", "--fast"),
-    ("sgl", "diamond", "--fast"), ("motif", "3"),
+    ("fsm", "2"), ("motif", "3"),
     ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
 def test_unported_exits_naming_roadmap(prefix, args):
     with pytest.raises(SystemExit) as e:
@@ -92,6 +93,22 @@ def test_generic_verbs_cpu_agree_with_jax(small, capsys, args):
     prof = ours["profile"]
     assert prof["device"] == "cpu"
     assert prof["counters"]["edge_tasks"] > 0
+    assert set(prof["kernel_launches"].values()) == {0}
+
+
+@pytest.mark.parametrize("pattern", ["diamond", "rectangle"])
+def test_sgl_fast_cpu_agrees_with_jax(small, capsys, pattern):
+    """sgl diamond|rectangle --fast runs the triangle support and 4-cycle
+    engines (the plain versions of their kernels on --cpu) and agrees with
+    the JAX package's fast engine and with the generic plan."""
+    ours = run(main, capsys, "sgl", small, pattern, "--fast", "--cpu",
+               "--profile")
+    ref = run(jmain, capsys, "sgl", small, pattern, "--fast", "--cpu")
+    gen = run(main, capsys, "sgl", small, pattern, "--cpu")
+    assert ours["total"] == ref["total"] == gen["total"] > 0
+    assert ours["pattern"] == pattern
+    prof = ours["profile"]
+    assert prof["device"] == "cpu"
     assert set(prof["kernel_launches"].values()) == {0}
 
 

@@ -1,5 +1,5 @@
-"""Kernels A-E, m3, m3b, R, X, L, G and Q against their plain PyTorch
-versions on a CUDA card, A, B, C and E also as one grouped launch over many
+"""Kernels A-E, m3, m3b, R, X, L, G, Q, S, P, I and W against their plain
+PyTorch versions on a CUDA card, A, B, C and E also as one grouped launch over many
 buckets.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
@@ -18,9 +18,10 @@ import torch
 
 from graphminer_tpu_torch.io.synth import rmat
 from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
-                                      cuda_cliquek, cuda_expand, cuda_gram,
-                                      cuda_hubcore, cuda_ring, cuda_stream,
-                                      cuda_window, fetch)
+                                      cuda_cliquek, cuda_colsum, cuda_expand,
+                                      cuda_gram, cuda_hubcore, cuda_ring,
+                                      cuda_stream, cuda_tri, cuda_window,
+                                      fetch, rectangle, tri_support)
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
@@ -839,3 +840,114 @@ def test_cliquebig_engine_on_card(dev, k, device_path):
         assert (ev["bit_gram_kernel"], ev["lo_popcount_kernel"],
                 ev["quad_emit_kernel"], ev["quad_count_kernel"]) == n
         assert n[0] > 0 and n[1] > 0 and (n[2] > 0) == device_path
+
+
+def sgl_tables(dev, seed, v=3000, w=128, max_deg=150):
+    """A bitmap table with bit 31 in every row and a sorted CSR without
+    repeats, with ftw in [0, deg + 2], as FtLists on `dev`."""
+    rng = np.random.default_rng(seed)
+    tab = words(rng, v, w)
+    tab[:, 0] |= np.int32(-2**31)
+    deg = rng.integers(0, max_deg + 1, v)
+    rows = [np.sort(rng.choice(v, int(d), replace=False)) for d in deg]
+    rowptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    colidx = np.concatenate(rows).astype(np.int32)
+    ftw = rng.integers(0, deg + 3).astype(np.int32)
+    ft = cuda_tri.FtLists.from_csr(rowptr, colidx, ftw, dev)
+    return rng, torch.from_numpy(tab).to(dev), ft
+
+
+def sgl_ids(rng, dev, lo, hi, n):
+    x = rng.integers(lo, hi, n).astype(np.int32)
+    x[::97] = SENTINEL
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("w", [8, 32, 128])
+def test_tri_bitmap(dev, w):
+    rng, tab, _ = sgl_tables(dev, w, w=w, max_deg=4)
+    v = tab.shape[0]
+    src, dst = sgl_ids(rng, dev, -3, v + 3, 50001), \
+        sgl_ids(rng, dev, 0, v, 50001)
+    n0 = cuda_tri.tri_bitmap.launches
+    got = cuda_tri.tri_bitmap(tab, src, dst)
+    assert cuda_tri.tri_bitmap.launches == n0 + 1
+    assert torch.equal(got, cuda_tri.tri_bitmap_plain(tab, src, dst))
+
+
+@pytest.mark.parametrize("w", [8, 128])
+def test_tri_probe(dev, w):
+    rng, tab, ft = sgl_tables(dev, 10 + w, w=w)
+    v = tab.shape[0]
+    u = sgl_ids(rng, dev, -2, v + 2, 40000)
+    vloc = sgl_ids(rng, dev, -2, 32 * w + 2, 40000)
+    vloc[:500] = 31
+    got = cuda_tri.tri_probe(ft, tab, u, vloc)
+    want = cuda_tri.tri_probe_plain(ft, tab, u, vloc)
+    assert torch.equal(got, want) and want[:500].any()
+
+
+def test_tri_lists(dev):
+    rng, _, ft = sgl_tables(dev, 5)
+    v = ft.n_vertices
+    u, w = sgl_ids(rng, dev, -2, v + 2, 40000), \
+        sgl_ids(rng, dev, 0, v, 40000)
+    got = cuda_tri.tri_lists(ft, u, w)
+    assert torch.equal(got, cuda_tri.tri_lists_plain(ft, u, w))
+    assert got.any()
+
+
+@pytest.mark.parametrize("w", [8, 40, 128, 300])
+def test_bit_colsum(dev, w):
+    rng, tab, ft = sgl_tables(dev, 20 + w, w=w, max_deg=60)
+    u = sgl_ids(rng, dev, -2, tab.shape[0] + 2, 700)
+    n0 = cuda_colsum.bit_colsum.launches
+    got = cuda_colsum.bit_colsum(ft, tab, u)
+    assert cuda_colsum.bit_colsum.launches == n0 + 1
+    assert torch.equal(got, cuda_colsum.bit_colsum_plain(ft, tab, u))
+    assert got[:, 31].any()
+
+
+def test_sgl_kernels_launch_nothing_without_tasks(dev):
+    _, tab, ft = sgl_tables(dev, 1)
+    e = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = (cuda_tri.tri_bitmap.launches, cuda_tri.tri_probe.launches,
+              cuda_tri.tri_lists.launches, cuda_colsum.bit_colsum.launches)
+    assert cuda_tri.tri_bitmap(tab, e, e).numel() == 0
+    assert cuda_tri.tri_probe(ft, tab, e, e).numel() == 0
+    assert cuda_tri.tri_lists(ft, e, e).numel() == 0
+    assert cuda_colsum.bit_colsum(ft, tab, e).numel() == 0
+    assert (cuda_tri.tri_bitmap.launches, cuda_tri.tri_probe.launches,
+            cuda_tri.tri_lists.launches,
+            cuda_colsum.bit_colsum.launches) == before
+
+
+@pytest.mark.parametrize("core", [256, 4096])
+def test_tri_support_on_card(dev, core):
+    """rmat12: tri on the card equals the CPU's; one launch each of S and,
+    when the core leaves sub-core ends, P and I; the diamond count
+    equals the CPU's."""
+    g = rmat(12, 16, seed=7)
+    launches = lambda: (cuda_tri.tri_bitmap.launches,
+                        cuda_tri.tri_probe.launches,
+                        cuda_tri.tri_lists.launches)
+    before = launches()
+    ts = tri_support.tri_support(g, core=core, device=dev)
+    got = tuple(a - b for a, b in zip(launches(), before))
+    ref = tri_support.tri_support(g, core=core, device="cpu")
+    assert torch.equal(ts.tri.cpu(), ref.tri)
+    assert got == ((1, 1, 1) if core < 4096 else (1, 0, 0))
+    assert tri_support.diamond_count_fast(g, core=core, device=dev) == \
+        tri_support.pairs_sum(ref.tri)
+
+
+def test_rectangle_on_card(dev):
+    """rmat12 at core 256: the card's count equals the CPU's and the
+    golden; W launches once a case-B chunk with a sub neighbour."""
+    g = rmat(12, 16, seed=7)
+    w0 = cuda_colsum.bit_colsum.launches
+    got = rectangle.rectangle_count_fast(g, core=256, chunk=1024,
+                                         device=dev)
+    assert got == 52_988_519 == \
+        rectangle.rectangle_count_fast(g, core=256, device="cpu")
+    assert cuda_colsum.bit_colsum.launches - w0 == 4   # 3840 sub-core u
