@@ -17,7 +17,7 @@ exit, no result line) when any phase fails:
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
   3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q (its count
-     and its emit; S, P, I and W in phase 15) against their
+     and its emit; S, P, I and W's modes in phase 15) against their
      plain PyTorch versions on the card, exactly: random inputs over every
      width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
@@ -61,7 +61,8 @@ exit, no result line) when any phase fails:
      clique 4 and 5 on rmat14 (36,628,817 and 387,027,732) generic and
      with --fast (CliqueKEngine: X once at build, G once, L once where
      there are lo tasks), sgl diamond and rectangle on rmat12 (57,515,371 and
-     52,988,519) generic and with --fast (S once; X twice), each against
+     52,988,519) generic and with --fast (S once; W's pairs mode and its
+     finish once each), each against
      its golden, with its run_s;
  10. holds the frontier's map engine against its compact engine on the
      card at rmat10, cliques k = 3-5 and the four SGL plans;
@@ -95,14 +96,21 @@ exit, no result line) when any phase fails:
      its hi part, task counts, launches, device ms of G, L and Q (CUDA
      events) and peak device memory;
  15. runs the fast SgL engines: holds S, P and I against their plain
-     versions on every task class of the rmat14 tri_support and W on the
-     first and last case-B chunk of rmat14; tri_support at rmat14 and
-     rmat18 (S, P and I once each; the sum of tri three times the
-     triangle golden) and the rmat18 diamonds; rectangle_count_fast at
-     rmat12, 13, 14 and 18 against bench.py:82-85 (W once a case-B chunk
-     with a sub neighbour, nothing else of ours but X); the rmat18 counts
-     once more under torch.profiler (host s, device ms, busy share); and
-     S, P, I and W timed at rmat18 beside their bounds, with the Gram and
+     versions on every task class of the rmat14 tri_support, W's write
+     mode on the first and last case-B chunk of the rmat14 yardstick
+     (ops/slab_form.py::rectangle_level0_slab), and W's pairs mode and its
+     finish on random inputs (bit 31, bad ids, rows of degree 0 and 1,
+     split and unsplit), on rmat14's level-0 plan and on one with a forced
+     split; tri_support at rmat14 and rmat18 (S, P and I once each; the
+     sum of tri three times the triangle golden) and the rmat18 diamonds;
+     rectangle_count_fast at rmat12, 13, 14 and 18 against bench.py:82-85
+     (W's pairs mode once and its finish once when the level splits a
+     row; no W write mode, X or torch._int_mm); the rmat18 counts once
+     more under torch.profiler (host s, device ms, busy share, peak
+     memory); the yardstick at rmat18 (W's write mode once a case-B chunk
+     with a sub neighbour, equal to the pairs mode); and S, P, I and W's
+     three launches timed at rmat18 beside their bounds, level 0 by the
+     pairs mode in turns with the yardstick, and the yardstick's Gram and
      case B beside their int8 operation bounds.
 
 Each path of phases 2, 4-6, 8 and 12-15 runs with every launch count set to
@@ -199,6 +207,14 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/bit_colsum.cu",
         "replaces": "graphminer_tpu/ops/rectangle.py:149"},
+    "colsum_pairs": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/bit_colsum.cu",
+        "replaces": "graphminer_tpu/ops/rectangle.py:93"},
+    "colsum_finish": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/bit_colsum.cu",
+        "replaces": "graphminer_tpu/ops/rectangle.py:119"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
@@ -281,7 +297,9 @@ def wrappers():
             "tri_bitmap": cuda_tri.tri_bitmap,
             "tri_probe": cuda_tri.tri_probe,
             "tri_lists": cuda_tri.tri_lists,
-            "bit_colsum": cuda_colsum.bit_colsum}
+            "bit_colsum": cuda_colsum.bit_colsum,
+            "colsum_pairs": cuda_colsum.colsum_pairs,
+            "colsum_finish": cuda_colsum.colsum_finish}
 
 
 def reset_counts():
@@ -1705,15 +1723,17 @@ def run_generic_cli(n_lo14):
         kl = prof["kernel_launches"]
         x_l_g = [kl[k] for k in ("expand_bits", "lo_popcount", "bit_gram")]
         s_p_i_w = [kl[k] for k in ("tri_bitmap", "tri_probe", "tri_lists",
-                                   "bit_colsum")]
+                                   "bit_colsum", "colsum_pairs",
+                                   "colsum_finish")]
         if args[0] == "sgl" and fast:
             # rmat12's 4096 ids are all core: S once for the diamonds, and
-            # for the 4-cycles case A alone (X twice: Accᵀ and M)
+            # for the 4-cycles level 0 alone: W's pairs mode once and its
+            # finish once (the longest row, 1344 slots, is split)
             check((x_l_g, s_p_i_w) ==
-                  (([0, 0, 0], [1, 0, 0, 0]) if args[1] == "diamond" else
-                   ([2, 0, 0], [0, 0, 0, 0])),
+                  (([0, 0, 0], [1, 0, 0, 0, 0, 0]) if args[1] == "diamond"
+                   else ([0, 0, 0], [0, 0, 0, 0, 1, 1])),
                   f"CLI {args}: launches of X, L, G {x_l_g}, of S, P, I, "
-                  f"W {s_p_i_w}")
+                  f"W (write, pairs, finish) {s_p_i_w}")
         else:
             # X: never (build and count); L: once, unless the engine has no
             # lo task; G: once
@@ -2169,15 +2189,22 @@ GOLDEN_DIAMOND18 = 45_873_513_836
 #: rmat(scale, 16, seed=7) 4-cycles (bench.py:82-85)
 GOLDEN_RECT = {12: 52_988_519, 13: 172_972_822, 14: 571_816_674,
                18: 51_349_430_411}
-SGL_KERNELS = ("tri_bitmap", "tri_probe", "tri_lists", "bit_colsum")
+SGL_KERNELS = ("tri_bitmap", "tri_probe", "tri_lists", "bit_colsum",
+               "colsum_pairs", "colsum_finish")
+#: a segment cut that splits most rows of rmat14 (the finish checked at
+#: scale)
+FORCED_CUT = 64
 
 
 def sgl_inputs(g, core=4096):
     """The arguments that tri_support gives kernels S, P and I (all tasks,
-    the sc tasks, the ss tasks) and the pieces of rectangle's case B, built
-    as the two engines build them, on the card."""
+    the sc tasks, the ss tasks), the rectangle engine's level-0 plan for
+    W's pairs mode, and the pieces of the product-form yardstick (the
+    Gram's rows, FT lists for W's write mode), built as the engines build
+    them, on the card."""
     from types import SimpleNamespace
     from graphminer_tpu_torch.ops import tri_support as ts
+    from graphminer_tpu_torch.ops.cuda_colsum import plan_pairs
     from graphminer_tpu_torch.ops.cuda_tri import FtLists
     rg = g.relabel_by_degree(descending=False)
     c, cs, words = ts.core_split(rg, core)
@@ -2191,29 +2218,39 @@ def sgl_inputs(g, core=4096):
     cc = src >= cs
     sc, ss = ~cc & (dst >= cs), ~cc & (dst < cs)
     keep = np.nonzero((core_nb >= 2) & (np.arange(rg.n_vertices) < cs))[0]
+    u = torch.arange(rg.n_vertices, dtype=torch.int32, device="cuda")
+    plan = lambda cut=None: plan_pairs(
+        ft.rowptr, ft.colidx, u, cs, c, *([cut] if cut else []))
     return SimpleNamespace(
-        c=c, cs=cs, words=words, table=table, ft=ft, ftw=ftw[:cs], keep=keep,
+        c=c, cs=cs, words=words, table=table, ft=ft, keep=keep,
         s=(table, t(src), t(dst)), p=(ft, table, t(src[sc]), t(dst[sc] - cs)),
-        i=(ft, t(src[ss]), t(dst[ss])),
+        i=(ft, t(src[ss]), t(dst[ss])), plan=plan(), plan_at=plan,
         w_chunks=sum(bool(ftw[a:min(cs, a + 4096)].any())
                      for a in range(0, cs, 4096)),
         n_tasks=(int(src.size), int(sc.sum()), int(ss.sum())))
 
 
 def w_args(inp, last=True):
-    """Kernel W's arguments on one case-B chunk of CHUNK_U sub-core u, the
-    last (densest) or the first."""
-    from graphminer_tpu_torch.ops.rectangle import CHUNK_U
+    """Kernel W's write-mode arguments on one case-B chunk of CHUNK_U
+    sub-core u of the yardstick, the last (densest) or the first."""
+    from graphminer_tpu_torch.ops.slab_form import CHUNK_U
     a = max(0, inp.cs - CHUNK_U) if last else 0
     u = torch.arange(a, min(inp.cs, a + CHUNK_U), dtype=torch.int32,
                      device="cuda")
     return inp.ft, inp.table, u
 
 
+def yardstick(inp):
+    """Level 0 by the product form W's pairs mode replaced."""
+    from graphminer_tpu_torch.ops.slab_form import rectangle_level0_slab
+    return rectangle_level0_slab(inp.table, inp.ft, inp.cs, inp.c, inp.keep)
+
+
 def profiled_count(label, fn, want):
     """One more call of fn() under torch.profiler (device activity only):
     its value must be `want`; prints its host seconds, the device time of
-    its events and their share of the call (the device-busy share)."""
+    its events and their share of the call (the device-busy share), then
+    the peak device memory of one more call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2229,15 +2266,55 @@ def profiled_count(label, fn, want):
     for e in dev:
         by[e.name[:40]] = by.get(e.name[:40], 0) + e.time_range.elapsed_us()
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    torch.cuda.reset_peak_memory_stats()
+    check(fn() == want, f"{label}: a second count")
     say(f"[{CARD}] {label} (profiled): host {host:.3f} s, device "
         f"{us / 1e3:.3f} ms in {len(dev)} events, busy "
         f"{us / 1e6 / host:.4f}; top: " +
-        ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+        ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top) +
+        f"; max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+
+
+def pairs_random():
+    """W's pairs mode on a random table (bit 31 in every row) and CSR (ids
+    outside the table, rows of degree 0 and 1, one row of 3000 slots) at
+    8, 40 and 128 words, unsplit and split."""
+    from graphminer_tpu_torch.ops import cuda_colsum as cc
+    rng = np.random.default_rng(15)
+    for w, cut in ((8, 4096), (40, 64), (128, 4096), (128, 1024)):
+        v = 3000
+        tab = torch.from_numpy(_words(rng, (v, w))).cuda()
+        tab[:, -1] |= -2**31
+        deg = rng.integers(0, 151, v)
+        deg[:5] = [0, 1, 0, 1, 3000]
+        rowptr = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(deg)]).astype(np.int64)).cuda()
+        colidx = torch.from_numpy(rng.integers(
+            -2, v + 2, int(deg.sum())).astype(np.int32)).cuda()
+        u = torch.arange(-1, v + 1, dtype=torch.int32, device="cuda")
+        plan = cc.plan_pairs(rowptr, colidx, u, v // 2, 32 * w - 5, cut)
+        pairs_checks(plan, tab, f"random {w} words, cut {cut}")
+
+
+def pairs_checks(plan, tab, label):
+    """colsum_pairs and, for a plan that splits rows, colsum_finish held
+    to their plain versions, and the whole count to the plain one."""
+    from graphminer_tpu_torch.ops import cuda_colsum as cc
+    total, counts = cc.colsum_pairs(plan, tab)
+    want_t, want_c = cc.colsum_pairs_plain(plan, tab)
+    what = (f"{label}, {plan.items.shape[0]} segments, "
+            f"{plan.long_u.shape[0]} split rows")
+    compare("colsum_pairs", total, want_t, what)
+    compare("colsum_pairs", counts, want_c, f"{what}: split rows' counts")
+    if plan.long_u.shape[0]:
+        compare("colsum_finish", cc.colsum_finish(plan, counts, total),
+                cc.colsum_finish_plain(plan, want_c, want_t), what)
 
 
 def sgl_kernel_checks(inp, label):
     """S, P and I against their plain versions on every task class of
-    `inp`, and W on its last and first case-B chunk."""
+    `inp`, W's write mode on the yardstick's last and first case-B chunk,
+    and its pairs mode on the level-0 plan and on one with FORCED_CUT."""
     from graphminer_tpu_torch.ops import cuda_colsum, cuda_tri
     for name, fn, plain, args in (
             ("tri_bitmap", cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
@@ -2254,64 +2331,113 @@ def sgl_kernel_checks(inp, label):
                 cuda_colsum.bit_colsum_plain(*a),
                 f"{label}, case-B chunk of {a[-1].numel()} u "
                 f"({'last' if last else 'first'})")
+    pairs_checks(inp.plan, inp.table, f"{label} level 0")
+    forced = inp.plan_at(FORCED_CUT)
+    check(forced.long_u.shape[0] > inp.plan.long_u.shape[0],
+          f"{label}: cut {FORCED_CUT} splits no more rows")
+    pairs_checks(forced, inp.table, f"{label} level 0, cut {FORCED_CUT}")
 
 
 def sgl_timing(inp):
-    """S, P, I and W at rmat18 (W on the last case-B chunk) beside their
-    bounds and plain versions, and the Gram and the whole case B beside
+    """S, P, I and W's write mode (on the yardstick's last case-B chunk),
+    pairs mode and finish at rmat18 beside their bounds and plain versions;
+    level 0 by the pairs mode in turns with the product-form yardstick
+    (the pairs row's library_ms); the yardstick's Gram and case B beside
     their int8 operation bounds."""
-    from graphminer_tpu_torch.ops import cuda_colsum, cuda_tri, rectangle
+    from graphminer_tpu_torch.ops import cuda_colsum as cc
+    from graphminer_tpu_torch.ops import cuda_tri, slab_form
     from graphminer_tpu_torch.ops import tri_support as ts
     from graphminer_tpu_torch.ops.cuda_expand import expand_bits
     from graphminer_tpu_torch.utils import profiling as pf
     res = {}
     wa = w_args(inp)
-    for name, fn, plain, args, nbytes in (
+    plan, table = inp.plan, inp.table
+    counts = torch.zeros((plan.long_u.shape[0], 32 * inp.words),
+                         dtype=torch.int32, device="cuda")
+    total = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for name, fn, plain, args, n, nbytes in (
             ("tri_bitmap", cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
-             inp.s, pf.tri_bitmap_bytes(*inp.s)),
+             inp.s, inp.n_tasks[0], pf.tri_bitmap_bytes(*inp.s)),
             ("tri_probe", cuda_tri.tri_probe, cuda_tri.tri_probe_plain,
-             inp.p, pf.tri_probe_bytes(*inp.p)),
+             inp.p, inp.n_tasks[1], pf.tri_probe_bytes(*inp.p)),
             ("tri_lists", cuda_tri.tri_lists, cuda_tri.tri_lists_plain,
-             inp.i, pf.tri_lists_bytes(*inp.i)),
-            ("bit_colsum", cuda_colsum.bit_colsum,
-             cuda_colsum.bit_colsum_plain, wa, pf.colsum_bytes(*wa))):
+             inp.i, inp.n_tasks[2], pf.tri_lists_bytes(*inp.i)),
+            ("bit_colsum", cc.bit_colsum, cc.bit_colsum_plain, wa,
+             wa[-1].numel(), pf.colsum_bytes(*wa)),
+            ("colsum_pairs", cc.colsum_pairs, cc.colsum_pairs_plain,
+             (plan, table), plan.items.shape[0],
+             pf.colsum_pairs_bytes(plan, table)),
+            ("colsum_finish", cc.colsum_finish, cc.colsum_finish_plain,
+             (plan, counts, total), plan.long_u.shape[0],
+             4 * counts.numel() + 4 * plan.long_u.numel() + 8)):
         k_ms, _ = time_ms(lambda: fn(*args))
         p_ms, _ = pf.time_ms(lambda: plain(*args), "cuda", 1)
         b = pf.bound_ms(nbytes)
         res[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
                          bound_by=b[1], library_ms=None)
-        say(f"[{CARD}] {name} rmat18 ({args[-1].numel()} tasks, 1 launch): "
+        say(f"[{CARD}] {name} rmat18 ({n} tasks, 1 launch): "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} "
             f"ms ({b[1]}, {nbytes} B)")
+    # level 0 whole: the pairs mode (pairs + finish) in turns with the
+    # product form it replaced
+    l0_ms, y_ms, l0, y = in_turns(lambda: cc.pairs_count(plan, table),
+                                  lambda: yardstick(inp))
+    check(l0 == y, f"rmat18 level 0: pairs mode {l0} != yardstick {y}")
+    res["colsum_pairs"].update(library_ms=y_ms, level0_ms=l0_ms)
+    say(f"[{CARD}] rectangle level 0 rmat18 (cases A + B = {l0}): W's "
+        f"pairs mode (pairs + finish, {plan.items.shape[0]} segments, "
+        f"{plan.long_u.shape[0]} split rows, cut {plan.cut}, scratch "
+        f"{counts.numel() * 4} B) {l0_ms:.4f} ms, the product-form "
+        f"yardstick {y_ms:.3f} ms (in turns)")
     cpad = 32 * inp.words
     g_ms, _ = time_ms(lambda: ts.gram_rows(inp.table, inp.keep, inp.words))
     ops = 2 * cpad * cpad * inp.keep.size
     b = pf.bound_ms(inp.keep.size * inp.words * 4 + 4 * cpad * cpad, ops)
-    say(f"[{CARD}] Gram (T4/R1: X + torch._int_mm) rmat18, "
+    say(f"[{CARD}] yardstick's Gram (X + torch._int_mm) rmat18, "
         f"{inp.keep.size} rows: {g_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}, "
         f"{ops:.4e} int8 operations)")
     acc = inp.table[inp.cs:]
     m = torch.triu(expand_bits(acc, n_out=cpad), diagonal=1)
-    b_ms, _ = time_ms(lambda: rectangle._case_b(
-        inp.table, inp.ft, m, inp.ftw, inp.c, rectangle.CHUNK_U))
+    b_ms, _ = time_ms(lambda: slab_form._case_b(
+        inp.table, inp.ft, m, inp.cs, inp.c, slab_form.CHUNK_U))
     ops = 2 * inp.cs * cpad * cpad
     b = pf.bound_ms(0, ops)
-    say(f"[{CARD}] rectangle case B (R3: X + torch._int_mm + W, "
+    say(f"[{CARD}] yardstick's case B (X + torch._int_mm + W's write mode, "
         f"{inp.w_chunks} chunks) rmat18, {inp.cs} sub-core u: {b_ms:.3f} "
         f"ms, bound {b[0]:.4f} ms ({b[1]}, {ops:.4e} int8 operations)")
     return res
 
 
+class CountIntMm:
+    """Counts torch._int_mm calls while it is active."""
+
+    def __enter__(self):
+        self.calls, self.real = 0, torch._int_mm
+
+        def counted(*a):
+            self.calls += 1
+            return self.real(*a)
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self.real
+
+
 def run_sgl(g18):
     """Phase 15: the diamond (tri_support) and rectangle engines against
-    their goldens, S, P, I and W against their plain versions on every
-    rmat14 task class and case-B chunks, launch counts (S, P, I once a
-    tri_support call; W once a case-B chunk with a sub neighbour), the
-    counts' host seconds, device ms and busy share, and the kernels timed
-    at rmat18. Returns (timings, {kernel: launches})."""
+    their goldens, S, P, I, W's write and pairs modes against their plain
+    versions (every rmat14 task class and yardstick chunk, random pairs
+    inputs, the rmat14 level-0 plan and a forced split), launch counts (S,
+    P, I once a tri_support call; W's pairs mode once a rectangle count and
+    its finish once when the level splits a row; no W write mode, X or
+    torch._int_mm from the rectangle engine), the counts' host seconds,
+    device ms, busy share and peak memory, and the kernels timed at rmat18.
+    Returns (timings, {kernel: launches})."""
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops import rectangle as rc
     from graphminer_tpu_torch.ops import tri_support as ts
+    from graphminer_tpu_torch.ops.cuda_colsum import pairs_count
     t_phase = time.perf_counter()
     launches = dict.fromkeys(SGL_KERNELS, 0)
     spi = list(SGL_KERNELS[:3])
@@ -2322,7 +2448,7 @@ def run_sgl(g18):
                           spi)
         host = time.perf_counter() - t0
         got = read_counts()
-        check([got[k] for k in SGL_KERNELS] == [1, 1, 1, 0],
+        check([got[k] for k in SGL_KERNELS] == [1, 1, 1, 0, 0, 0],
               f"{label}: launches {got}")
         for k in spi:
             launches[k] += 1
@@ -2330,6 +2456,7 @@ def run_sgl(g18):
               f"{label}: sum of tri {int(out.tri.sum())} != 3 x {want_tri}")
         return out, host
 
+    pairs_random()
     g14 = rmat(14, 16, seed=7)
     inp14 = sgl_inputs(g14)
     sgl_kernel_checks(inp14, "rmat14")
@@ -2346,30 +2473,47 @@ def run_sgl(g18):
                    GOLDEN_DIAMOND18)
     inp18 = sgl_inputs(g18)
     say(f"rmat18 tri_support tasks (all, sc, ss): {inp18.n_tasks}; Gram "
-        f"rows {inp18.keep.size}; case-B chunks with sub neighbours "
-        f"{inp18.w_chunks}")
+        f"rows {inp18.keep.size}; level-0 segments "
+        f"{inp18.plan.items.shape[0]}, split rows "
+        f"{inp18.plan.long_u.shape[0]}; yardstick case-B chunks with sub "
+        f"neighbours {inp18.w_chunks}")
     for scale in (12, 13, 14, 18):
         g = {14: g14, 18: g18}.get(scale) or rmat(scale, 16, seed=7)
-        want_w = (inp14 if scale == 14 else inp18 if scale == 18 else
-                  sgl_inputs(g)).w_chunks
+        plan = (inp14 if scale == 14 else inp18 if scale == 18 else
+                sgl_inputs(g)).plan
+        finish = int(plan.long_u.shape[0] > 0)
         t0 = time.perf_counter()
-        total, _ = run_path(
-            f"rectangle rmat{scale}",
-            lambda: rc.rectangle_count_fast(g, device="cuda"),
-            ["bit_colsum"] if want_w else [])
+        with CountIntMm() as mm:
+            total, _ = run_path(
+                f"rectangle rmat{scale}",
+                lambda: rc.rectangle_count_fast(g, device="cuda"),
+                ["colsum_pairs"] + ["colsum_finish"] * finish)
         host = time.perf_counter() - t0
         got = read_counts()
-        check([got[k] for k in SGL_KERNELS] == [0, 0, 0, want_w],
-              f"rectangle rmat{scale}: launches {got}, {want_w} case-B "
-              "chunks")
-        launches["bit_colsum"] += want_w
+        check([got[k] for k in SGL_KERNELS] == [0, 0, 0, 0, 1, finish]
+              and got["expand_bits"] == 0 and mm.calls == 0,
+              f"rectangle rmat{scale}: launches {got}, torch._int_mm "
+              f"{mm.calls}; want W's pairs mode once and its finish "
+              f"{finish}")
+        launches["colsum_pairs"] += 1
+        launches["colsum_finish"] += finish
         check(total == GOLDEN_RECT[scale],
               f"rectangle rmat{scale}: {total} != {GOLDEN_RECT[scale]}")
         say(f"[{CARD}] rectangle rmat{scale}: {total} in {host:.3f} s "
-            f"(host clock), W launches {want_w}")
+            f"(host clock), W pairs launches 1, finish {finish}")
     profiled_count("rectangle_count_fast rmat18",
                    lambda: rc.rectangle_count_fast(g18, device="cuda"),
                    GOLDEN_RECT[18])
+    # the yardstick's path: W's write mode once a case-B chunk with a sub
+    # neighbour (its launches in the kernels line)
+    y18, _ = run_path("rectangle level-0 yardstick rmat18",
+                      lambda: yardstick(inp18), ["bit_colsum"])
+    got = read_counts()["bit_colsum"]
+    check(got == inp18.w_chunks, f"yardstick: W write launches {got} != "
+          f"{inp18.w_chunks} case-B chunks")
+    launches["bit_colsum"] = got
+    check(y18 == pairs_count(inp18.plan, inp18.table),
+          "rmat18 level 0: yardstick != pairs mode")
     res = sgl_timing(inp18)
     del inp18, inp14
     torch.cuda.empty_cache()
@@ -2428,7 +2572,8 @@ def main():
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "host_us", "library_host_us",
-             "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms")
+             "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms",
+             "level0_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

@@ -17,9 +17,10 @@ come from GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
 L (lo_popcount), G (bit_gram), Q (quad_emit, quad_count), S
-(tri_bitmap), P (tri_probe), I (tri_lists) and W (bit_colsum) in this
-process; on a large-clique count its phases_s also hold the host seconds
-of the count's steps (host_hi, host_lo and, at k = 6, host_hi_estimate,
+(tri_bitmap), P (tri_probe), I (tri_lists) and W (bit_colsum, its write
+mode; colsum_pairs and colsum_finish, its pairs mode) in this process; on
+a large-clique count its phases_s also hold the host seconds of the
+count's steps (host_hi, host_lo and, at k = 6, host_hi_estimate,
 host_hi_triangles, host_hi_h2d, host_hi_offsets, host_hi_quad_gram). Without
 --cpu the count runs on CUDA, and it fails when no card is visible. Every
 other verb, the fast house engine, and the --sharded and --partition flags
@@ -127,7 +128,7 @@ def main(argv=None):
         import torch
         from .ops.cuda_cliquebig import quad_count, quad_emit
         from .ops.cuda_cliquek import lo_popcount
-        from .ops.cuda_colsum import bit_colsum
+        from .ops.cuda_colsum import bit_colsum, colsum_finish, colsum_pairs
         from .ops.cuda_expand import expand_bits
         from .ops.cuda_gram import bit_gram
         from .ops.cuda_hubcore import hub_tail_count
@@ -148,7 +149,7 @@ def main(argv=None):
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
                       hub_tail_count, expand_bits, lo_popcount, bit_gram,
                       quad_emit, quad_count, tri_bitmap, tri_probe,
-                      tri_lists, bit_colsum)}
+                      tri_lists, bit_colsum, colsum_pairs, colsum_finish)}
         out["profile"] = rep
 
     if ns.json:

@@ -126,6 +126,14 @@ _SIGNATURES = {
     # stream
     "gm_bit_colsum": [_VP, _VP, _VP, _VP, _I64, _I64, _VP, _I64, _VP, _I64,
                       _I64, _VP],
+    # rowptr, colidx, tab, v, words, cs, c, items, n, lg, counts, total,
+    # n_blocks, stream
+    "gm_colsum_pairs": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP, _I64,
+                        _I64, _VP, _VP, _I64, _VP],
+    # -> blocks of one full wave (negative: a CUDA error)
+    "gm_colsum_pairs_blocks": [],
+    # counts, long_u, n_long, words, cs, c, total, n_blocks, stream
+    "gm_colsum_finish": [_VP, _VP, _I64, _I64, _I64, _I64, _VP, _I64, _VP],
 }
 
 

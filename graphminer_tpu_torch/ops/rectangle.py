@@ -11,36 +11,42 @@ relabel):
 
     C4 = Σ_{pairs (u, v), v max} C(|N(u) ∩ N(v) ∩ [0, v)|, 2)
 
-With the top `core` ids [cs, V) closed under "max of the cycle", the
-truncated codegree w splits into matrix products over the core bitmaps fb
-(ops/tri_support.py::_pack_full_core_bitmaps) and their bit expansions
-(kernel X, ops/cuda_expand.py), int8 operands into int32 by torch._int_mm:
+With the top `core` ids [cs, V) closed under "max of the cycle", level 0
+takes every pair with v core (cases A and B of the JAX engine) in one pass
+of kernel W's pairs mode (ops/cuda_colsum.py, csrc/bit_colsum.cu). For a
+vertex x let T'[x] be its core bitmap fb(x) (tri_support.
+_pack_full_core_bitmaps) with, when x is core, every column <= x - cs
+cleared. Then for every u and every core column v (a core x counts only
+below v, a sub x always),
 
- * case A, u, v both core: w = Gs[u, v] + Wb[v, u], with
-     Gs = Σ_{x sub} fb(x) fb(x)ᵀ        the Gram of tri_support's T4 (R1)
-     Wb = Mᵀ Acc, M = Acc ⊙ 1[x < v]     Acc the core-core adjacency (R2)
-   Wbᵀ = Accᵀ M is one product of X's transposed expansion of the core
-   rows and M, masked to u < v < c.
- * case B, u sub, v core, CHUNK_U sub-core u at a time (R3):
-     wcb_u  = expand(fb(u)) M             X's gathered rows times M
-     wsub_u = Σ_{x ∈ FT(u)} expand(fb(x))  kernel W (ops/cuda_colsum.py),
-                                           FT(u) read in place as the
-                                           prefix of u's sorted CSR row
-   w = wcb + wsub, masked to v < c.
- * case C, v sub (so all four vertices sub): the same count on the
-   sub-induced graph, whose rows stay sorted. From depth 1 on, degrees are
-   capped by the parent's core, and once the wedges Σ C(deg, 2) are at most
-   WEDGE_NATIVE_CUT (or from depth 6) the native wedge pass
-   (native_bridge.c4_anchor, gm_c4) closes it with the same anchoring;
-   graphs of at most 256 vertices close by the dense identity (_c4_dense).
+    w_u[v] = Σ_{x ∈ N(u)} bit_v(T'[x])       (= Gs[u, v] + Wbᵀ[u, v], u core;
+                                                = wcb_u[v] + wsub_u[v], u sub)
 
-Cases A and B sum Σ C(w, 2) in int64 on the device; only the scalar
-comes back. The codegree assert (deg < 2^16) keeps each C(w, 2) below 2^31.
+and level 0 is Σ_u Σ_{v < c, and v > u - cs when u is core} C(w_u[v], 2):
+W walks each row with at least two slots once, whole (not the FT prefix),
+masks the core rows on the fly, keeps the column counts bit-sliced in
+registers and sums C(w, 2) on chip; rows longer than `chunk` slots are cut
+into segments whose counts the finish launch sums. The level is one pairs
+launch and at most one finish launch.
 
-Left out: `_pairs_lohi` / `_sum_lohi` (lo/hi-16 int32 partials, a TPU
-workaround for lacking int64), the `lax.map` chunking, the width classes
-of case B's FT lists (`_ft_sub_lists`, `FT_CLASSES`: W reads the lists in
-place) and the float32-then-int32 casts of the products.
+Case C, v sub (so all four vertices sub), is the same count on the
+sub-induced graph, whose rows stay sorted. From depth 1 on, degrees are
+capped by the parent's core, and once the wedges Σ C(deg, 2) are at most
+WEDGE_NATIVE_CUT (or from depth 6) the native wedge pass
+(native_bridge.c4_anchor, gm_c4) closes it with the same anchoring; graphs
+of at most 256 vertices close by the dense identity (_c4_dense).
+
+Level 0's sum is int64 on the device; only the scalar comes back. The
+codegree assert (deg < 2^16) keeps each column count within W's 16 bit
+planes.
+
+Left out: the JAX engine's products (the Gram `_gram_rows` of the sub rows,
+Wb = Mᵀ Acc, the batched wcb matvecs) and its masked factor M, the
+`_pairs_lohi` / `_sum_lohi` lo/hi-16 int32 partials (a TPU workaround for
+lacking int64), the `lax.map` chunking of case B and the width classes of
+its FT lists (`_ft_sub_lists`, `FT_CLASSES`), and the float32-then-int32
+casts. The product form survives as a yardstick only
+(ops/slab_form.py::rectangle_level0_slab).
 """
 from __future__ import annotations
 
@@ -49,15 +55,9 @@ import torch
 
 from ..core.graph import HostGraph
 from ..device import DeviceLike, resolve_device
-from ..types import round_up
-from .cuda_colsum import bit_colsum
-from .cuda_expand import expand_bits
-from .cuda_tri import FtLists
-from .tri_support import (CORE, _pack_full_core_bitmaps, core_neighbours,
-                          core_split, gram_rows, pairs_sum)
+from .cuda_colsum import SEG_CUT, pairs_count, plan_pairs
+from .tri_support import CORE, _pack_full_core_bitmaps, core_split
 
-#: sub-core u a case-B step
-CHUNK_U = 4096
 #: wedge budget below which the native anchor pass closes the recursion
 WEDGE_NATIVE_CUT = 1 << 29
 
@@ -100,38 +100,13 @@ def _c4_wedge_anchor(g) -> int:
     return int((cnts * (cnts - 1) // 2).sum())
 
 
-def _case_a(gs: torch.Tensor, xt: torch.Tensor, m: torch.Tensor,
-            c: int) -> int:
-    """Σ_{u<v<c} C(Gs[u, v] + Wbᵀ[u, v], 2), Wbᵀ = Accᵀ M (xt = Accᵀ)."""
-    w = torch._int_mm(xt, m)
-    if gs is not None:
-        w += gs
-    return pairs_sum(torch.triu(w[:c, :c], diagonal=1))
-
-
-def _case_b(table: torch.Tensor, ft: FtLists, m: torch.Tensor,
-            ftw: np.ndarray, c: int, chunk: int) -> int:
-    """Σ_{u sub} Σ_{v<c} C(wcb_u[v] + wsub_u[v], 2), CHUNK_U u a step; W
-    launches once a step that has any sub neighbour."""
-    dev = table.device
-    cs = ftw.shape[0]
-    total = 0
-    for s in range(0, cs, chunk):
-        e = min(cs, s + chunk)
-        u = torch.arange(s, e, dtype=torch.int32, device=dev)
-        w = torch._int_mm(expand_bits(table, r=u, n_out=round_up(e - s, 32)),
-                          m)[:e - s, :c]
-        if ftw[s:e].any():
-            w = w + bit_colsum(ft, table, u)[:, :c]
-        total += pairs_sum(w)
-    return total
-
-
-def rectangle_count_fast(g, core: int = CORE, chunk: int = CHUNK_U,
+def rectangle_count_fast(g, core: int = CORE, chunk: int = SEG_CUT,
                          device: DeviceLike = "cuda", _depth: int = 0) -> int:
     """Exact 4-cycle count via the max-anchored hybrid engine.
 
-    Level 0 runs the matrix-product decomposition (the hub mass); recursion
+    Level 0 (every pair with a core end, the hub mass) is one pass of
+    kernel W's pairs mode; `chunk` (the name kept) is its segment cut, the
+    most list slots one segment takes before a row is split. Recursion
     levels have degree capped by the parent's core threshold, so once the
     wedge count is bounded the native anchor pass closes exactly (the
     recursion would otherwise peel only `core` ids a level)."""
@@ -146,31 +121,22 @@ def rectangle_count_fast(g, core: int = CORE, chunk: int = CHUNK_U,
     dev = resolve_device(device)
     rg = g.relabel_by_degree(descending=False)
     v = rg.n_vertices
-    assert np.diff(rg.rowptr).max(initial=0) < (1 << 16), \
-        "codegree bound for int32 pairs"
+    deg = np.diff(rg.rowptr).astype(np.int64)
+    assert deg.max(initial=0) < (1 << 16), \
+        "codegree bound: a count within W's 16 bit planes"
     c, cs, words = core_split(rg, core)
-    cpad = 32 * words
-    deg, core_nb = core_neighbours(rg, cs)
 
+    # level 0, cases A and B: u's whole row against T', on the device
     table = torch.from_numpy(_pack_full_core_bitmaps(rg, cs, words)).to(dev)
-    acc = table[cs:]                                  # core rows
-    # Accᵀ and M = Acc ⊙ 1[x < v], both [cpad, cpad] (zero rows past c)
-    xt = expand_bits(acc, n_out=cpad, transpose=True)
-    m = torch.triu(expand_bits(acc, n_out=cpad), diagonal=1)
-
-    # case A: Gs over the sub rows with >= 2 core nbrs (fewer touch only the
-    # diagonal, which u < v drops)
-    keep = np.nonzero((core_nb >= 2) & (np.arange(v) < cs))[0]
-    gs = gram_rows(table, keep, words) if keep.size else None
-    total = _case_a(gs, xt, m, c)
-    del gs, xt
+    csr = [torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+           for a, dt in ((rg.rowptr, np.int64), (rg.colidx, np.int32))]
+    plan = plan_pairs(*csr,
+                      torch.arange(v, dtype=torch.int32, device=dev), cs, c,
+                      chunk)
+    total = pairs_count(plan, table)
+    del plan, table, csr
 
     if cs:
-        # case B: u sub, v core
-        ft = FtLists.from_csr(rg.rowptr, rg.colidx, deg - core_nb, dev)
-        total += _case_b(table, ft, m, (deg - core_nb)[:cs], c, chunk)
-        del ft, m, table
-
         # case C: cycles whose max vertex is sub — the sub-induced graph
         # (ids [0, cs) are a CSR prefix; the filter keeps rows sorted)
         colsrc = np.repeat(np.arange(v, dtype=np.int64), deg)

@@ -1,10 +1,11 @@
-"""The slab form of the clique engine's hi part: kernel X + torch._int_mm.
+"""The slab forms: kernel X + torch._int_mm, kept as yardsticks.
 
-The form that kernel G (ops/cuda_gram.py) replaced on CliqueKEngine's hi
-part, kept as G's yardstick: chip_smoke.py and scripts/prof_breakdown.py
---clique time it beside G and hold it to G's totals. No engine calls it on
-a count, and building an engine pays for none of it: CliqueSlab expands
-B_hh and makes its CUDA streams when they are first used.
+The clique engine's hi part: the form that kernel G (ops/cuda_gram.py)
+replaced on CliqueKEngine's hi part, kept as G's yardstick: chip_smoke.py
+and scripts/prof_breakdown.py --clique time it beside G and hold it to G's
+totals. No engine calls it on a count, and building an engine pays for
+none of it: CliqueSlab expands B_hh and makes its CUDA streams when they
+are first used.
 
 Kernel X (ops/cuda_expand.py) expands the hi tasks in slabs of at most
 SLAB_BYTES, transposed (Yᵀ, int8 [hi, slab]), and each slab adds
@@ -13,6 +14,15 @@ fewer than 2^31, which the engine checks), masked by B_hh expanded by X
 (hi_adj). Reassociated from the JAX package's per-task bilinear
 (graphminer_tpu/ops/cliquek.py::_edge_hi_bilinear, ::_tri_stream_bilinear),
 both integer sums are equal.
+
+The rectangle engine's level 0 (rectangle_level0_slab): the product form
+that kernel W's pairs mode (ops/cuda_colsum.py) replaced, kept as its
+yardstick; chip_smoke.py times it in turns with the pairs mode and the CPU
+tests hold the two equal. Case A is the Gram of the sub rows (tri_support.
+gram_rows) plus Accᵀ M, M = Acc ⊙ 1[x < v], by one torch._int_mm of X's
+expansions; case B takes CHUNK_U sub-core u a step: X's gathered rows times
+M by torch._int_mm, plus W's write mode (the FT-prefix column sums) on a
+step with a sub neighbour; each Σ C(w, 2) in int64 on the device.
 """
 from __future__ import annotations
 
@@ -21,10 +31,13 @@ import itertools
 import torch
 
 from ..types import round_up
+from .cuda_colsum import bit_colsum
 from .cuda_expand import expand_bits
 
 #: most bytes of one X-expanded slab (int8 [hi, slab tasks])
 SLAB_BYTES = 1 << 30
+#: sub-core u a case-B step of the rectangle yardstick
+CHUNK_U = 4096
 #: CUDA streams the slabs take turns on by default; 2 beat 1 and 4 on the
 #: H100 (PERF.md; scripts/prof_breakdown.py --clique times 1, 2 and 4)
 HI_STREAMS = 2
@@ -147,3 +160,52 @@ class CliqueSlab:
         """int64 [hi_dim] the engine's hi_partials by the slab form."""
         return (self.gram(n_streams, calls).to(torch.int64)
                 * self.bhh).sum(dim=1)
+
+
+def _case_a(gs, xt: torch.Tensor, m: torch.Tensor, c: int) -> int:
+    """Σ_{u<v<c} C(Gs[u, v] + Wbᵀ[u, v], 2), Wbᵀ = Accᵀ M (xt = Accᵀ)."""
+    from .tri_support import pairs_sum
+    w = torch._int_mm(xt, m)
+    if gs is not None:
+        w += gs
+    return pairs_sum(torch.triu(w[:c, :c], diagonal=1))
+
+
+def _case_b(table: torch.Tensor, ft, m: torch.Tensor, cs: int, c: int,
+            chunk: int) -> int:
+    """Σ_{u sub} Σ_{v<c} C(wcb_u[v] + wsub_u[v], 2), `chunk` u a step; W's
+    write mode once a step that has any sub neighbour."""
+    from .tri_support import pairs_sum
+    dev = table.device
+    total = 0
+    for s in range(0, cs, chunk):
+        e = min(cs, s + chunk)
+        u = torch.arange(s, e, dtype=torch.int32, device=dev)
+        w = torch._int_mm(expand_bits(table, r=u, n_out=round_up(e - s, 32)),
+                          m)[:e - s, :c]
+        if bool(ft.ftw[s:e].any()):
+            w = w + bit_colsum(ft, table, u)[:, :c]
+        total += pairs_sum(w)
+    return total
+
+
+def rectangle_level0_slab(table: torch.Tensor, ft, cs: int, c: int, keep,
+                          chunk: int = CHUNK_U) -> int:
+    """Cases A and B of the rectangle engine by the product form, on
+    table's device: table the full-core bitmaps int32 [V, words] of the
+    relabeled graph with the core [cs, cs + c), ft its FtLists (ftw = the
+    sub-core neighbours), keep the sub rows with at least two core
+    neighbours (numpy ids)."""
+    from .tri_support import gram_rows
+    words = table.shape[1]
+    cpad = 32 * words
+    acc = table[cs:]                                  # core rows
+    # Accᵀ and M = Acc ⊙ 1[x < v], both [cpad, cpad] (zero rows past c)
+    xt = expand_bits(acc, n_out=cpad, transpose=True)
+    m = torch.triu(expand_bits(acc, n_out=cpad), diagonal=1)
+    gs = gram_rows(table, keep, words) if len(keep) else None
+    total = _case_a(gs, xt, m, c)
+    del gs, xt
+    if cs:
+        total += _case_b(table, ft, m, cs, c, chunk)
+    return total

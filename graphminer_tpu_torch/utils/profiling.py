@@ -10,8 +10,9 @@ pair also spans the host's dispatch of the call), device_ms gives the
 device time alone and the device operations a call runs (torch.profiler),
 bound_ms gives the least time an H100 SXM could take for a given work, and
 gram_bounds, quad_bytes and quad_count_bytes put kernel G's and kernel Q's
-work in its terms, and tri_bitmap_bytes, tri_probe_bytes, tri_lists_bytes
-and colsum_bytes kernels S's, P's, I's and W's.
+work in its terms, and tri_bitmap_bytes, tri_probe_bytes, tri_lists_bytes,
+colsum_bytes and colsum_pairs_bytes kernels S's, P's, I's and W's (write
+and pairs modes).
 Left out: xla_trace (torch.profiler is the tool on the card).
 """
 from __future__ import annotations
@@ -217,6 +218,21 @@ def colsum_bytes(ft, tab, u) -> int:
     words = tab.shape[1]
     return 4 * u.numel() + _distinct_list_bytes(ft, u) + \
         x.numel() * words * 4 + u.numel() * 32 * words * 4
+
+
+def colsum_pairs_bytes(plan, tab) -> int:
+    """The bytes kernel W's pairs mode (ops/cuda_colsum.py::colsum_pairs)
+    must move for one call over a PairsPlan: each task row's id and row
+    bounds (4 + 16 B), 4 B a list slot, each distinct table row a slot
+    names read once, and the int64 scalar; its split rows' counts are
+    design, not output."""
+    _, x = plan.slots()
+    x = x[(x >= 0) & (x < tab.shape[0])]
+    named = torch.zeros(tab.shape[0], dtype=torch.bool, device=x.device)
+    named[x] = True
+    rows = int(torch.unique(plan.items[:, 0]).numel())
+    return 20 * rows + 4 * int(plan.items[:, 2].long().sum()) + \
+        int(named.sum()) * tab.shape[1] * 4 + 8
 
 
 def time_ms(fn, device, reps: int = 11):

@@ -51,7 +51,7 @@ def test_tc_fast_cpu_agrees_with_jax(prefix, capsys):
         "stream_bucket_count", "ring_phase_c", "ring_tail_pairs",
         "hub_tail_count", "expand_bits", "lo_popcount", "bit_gram",
         "quad_emit", "quad_count", "tri_bitmap", "tri_probe", "tri_lists",
-        "bit_colsum"}
+        "bit_colsum", "colsum_pairs", "colsum_finish"}
 
 
 def test_info_agrees_with_jax(prefix, capsys):

@@ -908,6 +908,47 @@ def test_bit_colsum(dev, w):
     assert got[:, 31].any()
 
 
+def pairs_plan(dev, seed, v=3000, w=128, max_deg=150, cut=1024):
+    """A random table (bit 31 in every row), a CSR with ids outside [0, v)
+    and rows of degree 0 and 1, and its PairsPlan over every row and a few
+    bad ids, on `dev`."""
+    rng = np.random.default_rng(seed)
+    tab = words(rng, v, w)
+    tab[:, -1] |= np.int32(-2**31)
+    deg = rng.integers(0, max_deg + 1, v)
+    deg[:4] = [0, 1, 0, 1]
+    deg[4] = 3000
+    rowptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    colidx = rng.integers(-2, v + 2, int(deg.sum())).astype(np.int32)
+    u = np.concatenate([np.arange(v), [-1, v]]).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    plan = cuda_colsum.plan_pairs(t(rowptr), t(colidx), t(u), v // 2,
+                                  32 * w - 5, cut)
+    return torch.from_numpy(tab).to(dev), plan
+
+
+@pytest.mark.parametrize("w,cut", [(8, 1024), (40, 64), (128, 1024),
+                                   (128, 100), (256, 4096)])
+def test_colsum_pairs(dev, w, cut):
+    """W's pairs mode == its plain version, with and without split rows;
+    the finish launches only when the plan splits a row."""
+    tab, plan = pairs_plan(dev, w + cut, w=w, cut=cut)
+    n0 = (cuda_colsum.colsum_pairs.launches,
+          cuda_colsum.colsum_finish.launches)
+    total, counts = cuda_colsum.colsum_pairs(plan, tab)
+    want_t, want_c = cuda_colsum.colsum_pairs_plain(plan, tab)
+    assert torch.equal(total, want_t) and torch.equal(counts, want_c)
+    split = plan.long_u.numel() > 0
+    assert split == (cut < 3000)
+    if split:
+        got = cuda_colsum.colsum_finish(plan, counts, total.clone())
+        assert torch.equal(got, cuda_colsum.colsum_finish_plain(
+            plan, want_c, want_t))
+    assert (cuda_colsum.colsum_pairs.launches - n0[0],
+            cuda_colsum.colsum_finish.launches - n0[1]) == (1, int(split))
+    assert int(total) > 0 and (counts.any() or not split)
+
+
 def test_sgl_kernels_launch_nothing_without_tasks(dev):
     _, tab, ft = sgl_tables(dev, 1)
     e = torch.zeros(0, dtype=torch.int32, device=dev)
@@ -920,6 +961,12 @@ def test_sgl_kernels_launch_nothing_without_tasks(dev):
     assert (cuda_tri.tri_bitmap.launches, cuda_tri.tri_probe.launches,
             cuda_tri.tri_lists.launches,
             cuda_colsum.bit_colsum.launches) == before
+    plan = cuda_colsum.plan_pairs(ft.rowptr, ft.colidx, e, 10, 100)
+    p0 = (cuda_colsum.colsum_pairs.launches,
+          cuda_colsum.colsum_finish.launches)
+    assert cuda_colsum.pairs_count(plan, tab) == 0
+    assert (cuda_colsum.colsum_pairs.launches,
+            cuda_colsum.colsum_finish.launches) == p0
 
 
 @pytest.mark.parametrize("core", [256, 4096])
@@ -941,13 +988,28 @@ def test_tri_support_on_card(dev, core):
         tri_support.pairs_sum(ref.tri)
 
 
-def test_rectangle_on_card(dev):
+def test_rectangle_on_card(dev, monkeypatch):
     """rmat12 at core 256: the card's count equals the CPU's and the
-    golden; W launches once a case-B chunk with a sub neighbour."""
+    golden; level 0 is one launch of W's pairs mode and, when a row is
+    longer than the segment cut (rmat12's longest has 1344 slots), one
+    finish launch, and the engine launches no W write mode, no X and no
+    torch._int_mm."""
     g = rmat(12, 16, seed=7)
-    w0 = cuda_colsum.bit_colsum.launches
-    got = rectangle.rectangle_count_fast(g, core=256, chunk=1024,
-                                         device=dev)
-    assert got == 52_988_519 == \
-        rectangle.rectangle_count_fast(g, core=256, device="cpu")
-    assert cuda_colsum.bit_colsum.launches - w0 == 4   # 3840 sub-core u
+    int_mm = []
+    real = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm",
+                        lambda *a: int_mm.append(1) or real(*a))
+    launches = lambda: (cuda_colsum.colsum_pairs.launches,
+                        cuda_colsum.colsum_finish.launches,
+                        cuda_colsum.bit_colsum.launches,
+                        cuda_expand.expand_bits.launches)
+    for chunk, finish in ((1024, 1), (4096, 0)):
+        before = launches()
+        got = rectangle.rectangle_count_fast(g, core=256, chunk=chunk,
+                                             device=dev)
+        assert tuple(a - b for a, b in zip(launches(), before)) == \
+            (1, finish, 0, 0)
+        assert got == 52_988_519
+    assert not int_mm
+    assert rectangle.rectangle_count_fast(g, core=256, device="cpu") == \
+        52_988_519

@@ -7,7 +7,7 @@ import torch
 
 from graphminer_tpu_torch.ops import cuda_check
 from graphminer_tpu_torch.scripts import (launch_check, prof_breakdown,
-                                          prof_window)
+                                          prof_rectangle, prof_window)
 
 
 def test_times_two_plain_wraps_like_int32():
@@ -111,11 +111,22 @@ def test_tail_bytes_counts_each_named_row_prefix_once(scale, core):
 
 @pytest.mark.parametrize("script,argv", [
     (launch_check, []), (prof_breakdown, []),
-    (prof_window, ["1024", "256", "128", "8"])])
+    (prof_window, ["1024", "256", "128", "8"]),
+    (prof_rectangle, ["--scale", "8"])])
 def test_scripts_need_a_card_by_default(monkeypatch, script, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         script.main(argv)
+
+
+def test_prof_rectangle_on_cpu(capsys):
+    """prof_rectangle at scale 12 on the CPU: the golden count, once a rep,
+    and no device figures."""
+    res = prof_rectangle.main(["--device", "cpu", "--scale", "12",
+                               "--reps", "1"])
+    assert res["count"] == prof_rectangle.GOLDEN[12]
+    assert len(res["host_s"]) == 1 and "device_ms" not in res
+    assert '"count": 52988519' in capsys.readouterr().out
 
 
 def test_prof_cliquebig_on_cpu(capsys):

@@ -1,9 +1,10 @@
-"""Port 4-cycle engine (graphminer_tpu_torch/ops/rectangle.py: cases A and
-B on X + torch._int_mm and kernel W's plain version, the recursion and its
-closers) against the JAX package's ops/rectangle.py, the frontier engine,
+"""Port 4-cycle engine (graphminer_tpu_torch/ops/rectangle.py: level 0,
+cases A and B, by the plain version of kernel W's pairs mode, the recursion
+and its closers) against the JAX package's ops/rectangle.py, the frontier engine,
 the native wedge pass, a brute-force oracle and the pinned golden
 (bench.py:82). Inputs from
 numpy seeds; all exact."""
+import numpy as np
 import pytest
 
 import oracle
@@ -65,7 +66,10 @@ def test_rmat12_golden_default_core():
 
 
 def test_chunk_invariance():
+    """The segment cut (`chunk`) splits rmat11's longer rows at 64 and 100
+    slots and none at 4096: the count stays the same."""
     g = rmat(11, 8, seed=3)
+    assert 100 < np.diff(g.rowptr).max() < 4096
     a = rc.rectangle_count_fast(g, core=128, chunk=64, device="cpu")
     b = rc.rectangle_count_fast(g, core=128, chunk=4096, device="cpu")
     c = rc.rectangle_count_fast(g, core=128, chunk=100, device="cpu")
