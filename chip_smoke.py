@@ -2247,20 +2247,29 @@ def yardstick(inp):
 
 
 def profiled_count(label, fn, want):
-    """One more call of fn() under torch.profiler (device activity only):
-    its value must be `want`; prints its host seconds, the device time of
-    its events and their share of the call (the device-busy share), then
-    the peak device memory of one more call."""
+    """Two more calls of fn() under torch.profiler (device activity only),
+    the first its warm-up step and the second the one it records: their
+    value must be `want`; prints the recorded call's host seconds, the
+    device time of its events and their share of the call (the device-busy
+    share), then the peak device memory of one more call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(p.events())) as prof:
+        check(fn() == want, f"{label}: the warm-up count")
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         host = time.perf_counter() - t0
+        prof.step()
     check(got == want, f"{label}: {got} != {want}")
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(recorded) == 1, f"{label}: {len(recorded)} profiler cycles")
+    dev = [e for e in recorded[0] if e.device_type == DeviceType.CUDA]
     us = sum(e.time_range.elapsed_us() for e in dev)
     by = {}
     for e in dev:
@@ -2311,6 +2320,44 @@ def pairs_checks(plan, tab, label):
                 cc.colsum_finish_plain(plan, want_c, want_t), what)
 
 
+def sp_runs_checks():
+    """S and P against their plain versions on random tables (bit 31 in
+    every word, 128 words) with tasks in sorted runs of 150-300 (longer
+    than the kernels' windows), ids outside [0, V) inside the runs, values
+    ascending in each run, P's bits at sector edges (31/32, 255/256, the
+    last bit, just outside [0, 32 words)) and lists up to 160 slots."""
+    from graphminer_tpu_torch.ops import cuda_tri
+    rng = np.random.default_rng(13)
+    v, w, n = 20000, 128, 400_000
+    dev = torch.device("cuda")
+    tab = _words(rng, (v, w)) | np.int32(-2**31)
+    lens = rng.integers(150, 301, n // 150 + 1)
+    ids = np.repeat(np.sort(rng.integers(0, v, lens.size)), lens)[:n]
+    ids[7::131], ids[11::173], ids[13::197] = -1, v, 2**31 - 1
+    run = np.cumsum(np.r_[True, ids[1:] != ids[:-1]])
+    in_runs = lambda x: x[np.lexsort((x, run))].astype(np.int32)
+    vl = rng.integers(0, 32 * w, n)
+    vl[::3] = rng.choice([0, 31, 32, 255, 256, 32 * w - 1, -1, 32 * w],
+                         vl[::3].size)
+    deg = rng.integers(0, 161, v)
+    rowptr = np.concatenate([[0], np.cumsum(deg)])
+    colidx = np.concatenate([np.sort(rng.choice(v, d, replace=False))
+                             for d in deg]).astype(np.int32)
+    ft = cuda_tri.FtLists.from_csr(rowptr, colidx, deg, dev)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a, dtype=np.int32)).to(dev)
+    s = (t(tab), t(ids), t(in_runs(rng.integers(-3, v + 3, n))))
+    p = (ft, s[0], t(ids), t(in_runs(vl)))
+    for name, fn, plain, args, loads in (
+            ("tri_bitmap", cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
+             s, cuda_tri.bitmap_loads(*s)),
+            ("tri_probe", cuda_tri.tri_probe, cuda_tri.tri_probe_plain, p,
+             cuda_tri.probe_loads(*p))):
+        compare(name, fn(*args), plain(*args),
+                f"sorted long runs, {n} tasks, {loads['runs']} runs")
+        say(f"{name} == plain on sorted long runs: {loads}")
+
+
 def sgl_kernel_checks(inp, label):
     """S, P and I against their plain versions on every task class of
     `inp`, W's write mode on the yardstick's last and first case-B chunk,
@@ -2336,6 +2383,28 @@ def sgl_kernel_checks(inp, label):
     check(forced.long_u.shape[0] > inp.plan.long_u.shape[0],
           f"{label}: cut {FORCED_CUT} splits no more rows")
     pairs_checks(forced, inp.table, f"{label} level 0, cut {FORCED_CUT}")
+
+
+def sp_loads(inp):
+    """What S and P load at rmat18 under their designs (cuda_tri's
+    bitmap_loads and probe_loads): S's runs, windows and src rows against
+    the first design's two rows a task; P's runs, lists and 32-byte sector
+    requests (its warps' and once a run) against one probe a list slot a
+    task."""
+    from graphminer_tpu_torch.ops import cuda_tri
+    s = cuda_tri.bitmap_loads(*inp.s)
+    say(f"S rmat18 ({cuda_tri.S_WINDOW} tasks a warp): {s['runs']} runs of "
+        f"equal src, {s['windows']} windows, {s['src_rows']} src rows and "
+        f"{s['dst_rows']} dst rows loaded, {s['row_bytes']} B (first "
+        f"design: {2 * s['dst_rows']} rows, "
+        f"{2 * s['dst_rows'] * 4 * inp.words} B)")
+    p = cuda_tri.probe_loads(*inp.p)
+    once = cuda_tri.probe_loads(*inp.p, window=None)
+    say(f"P rmat18 ({cuda_tri.P_WINDOW} tasks a warp): {p['runs']} runs of "
+        f"equal u, {p['lists']} lists read ({p['list_ids']} ids; once a run "
+        f"{once['lists']}, {once['list_ids']} ids), {p['sectors']} 32-byte "
+        f"sector requests (once a run {once['sectors']}; 18,346,857 "
+        f"expected) against {p['probes']} one-word probes")
 
 
 def sgl_timing(inp):
@@ -2370,14 +2439,17 @@ def sgl_timing(inp):
             ("colsum_finish", cc.colsum_finish, cc.colsum_finish_plain,
              (plan, counts, total), plan.long_u.shape[0],
              4 * counts.numel() + 4 * plan.long_u.numel() + 8)):
-        k_ms, _ = time_ms(lambda: fn(*args))
-        p_ms, _ = pf.time_ms(lambda: plain(*args), "cuda", 1)
+        k_ms, kv = time_ms(lambda: fn(*args))
+        p_ms, pv = pf.time_ms(lambda: plain(*args), "cuda", 1)
+        if name in ("tri_bitmap", "tri_probe"):
+            compare(name, kv, pv, f"rmat18, {n} tasks")
         b = pf.bound_ms(nbytes)
         res[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
                          bound_by=b[1], library_ms=None)
         say(f"[{CARD}] {name} rmat18 ({n} tasks, 1 launch): "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} "
             f"ms ({b[1]}, {nbytes} B)")
+    sp_loads(inp)
     # level 0 whole: the pairs mode (pairs + finish) in turns with the
     # product form it replaced
     l0_ms, y_ms, l0, y = in_turns(lambda: cc.pairs_count(plan, table),
@@ -2428,12 +2500,13 @@ def run_sgl(g18):
     """Phase 15: the diamond (tri_support) and rectangle engines against
     their goldens, S, P, I, W's write and pairs modes against their plain
     versions (every rmat14 task class and yardstick chunk, random pairs
-    inputs, the rmat14 level-0 plan and a forced split), launch counts (S,
+    inputs, the rmat14 level-0 plan and a forced split; S and P also on
+    random sorted long runs and at rmat18), launch counts (S,
     P, I once a tri_support call; W's pairs mode once a rectangle count and
     its finish once when the level splits a row; no W write mode, X or
     torch._int_mm from the rectangle engine), the counts' host seconds,
-    device ms, busy share and peak memory, and the kernels timed at rmat18.
-    Returns (timings, {kernel: launches})."""
+    device ms, busy share and peak memory, and the kernels timed at rmat18
+    (with what S and P load). Returns (timings, {kernel: launches})."""
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops import rectangle as rc
     from graphminer_tpu_torch.ops import tri_support as ts
@@ -2460,6 +2533,7 @@ def run_sgl(g18):
     g14 = rmat(14, 16, seed=7)
     inp14 = sgl_inputs(g14)
     sgl_kernel_checks(inp14, "rmat14")
+    sp_runs_checks()
     support("tri_support rmat14", g14, GOLDEN[14])
     ts18, host = support("tri_support rmat18", g18, GOLDEN[18])
     diamonds = ts.pairs_sum(ts18.tri)

@@ -18,23 +18,50 @@
 // host builds no list and no width class. An id outside [0, v), and in P a
 // bit vl_t outside [0, 32 words), adds 0 (a task whose u or w lies outside
 // [0, v) has an empty list). I takes rows without a repeated id, as a CSR of
-// a simple graph has them.
+// a simple graph has them. Any task order gives the same result; the
+// engine's order (DAG CSR order: runs of equal src, dst ascending within a
+// run) is the fast one for S and P.
 //
 // Bound: bytes. Each task's ids and its int32 result, each distinct row a
 // task names read once (S: two 16-byte-aligned bitmap rows; P: one 4-byte
-// word a list slot; I: the two lists). Design: a group of 8 lanes a task
-// (4 tasks a warp, the warps grid-striding over the tasks). S's lanes read
-// 16-byte chunks of both rows (one pass of the group covers 128 words in 4
-// loads a lane) and sum popcounts; P's lanes stride over the list, one word
-// load a slot; I's lanes take the shorter list's ids and binary-search the
-// longer list (gm::in_sorted). The group's sum is a width-8 shuffle
-// reduction; lane 0 stores it. Nothing is summed across tasks.
+// word a list slot; I: the two lists). What holds S and P back is what they
+// move through L2 on top of that, so their designs cut it:
+//
+// S: the rows it streams. A warp takes a window of S_WINDOW = 128
+// consecutive tasks, and each of its four groups of 8 lanes a quarter of
+// it. A group keeps its current src row in registers (lane l
+// holds the 16-byte chunks l, l + 8, l + 16, l + 24: a row of up to 128
+// words) and reloads it only where a task's src differs from the last one
+// it loaded, so a run of equal src reads its row once and streams the dst
+// rows alone (AND, popcount, a width-8 shuffle sum): about one 16-byte-
+// chunked row a task through L2 instead of two. A group's ids come 8 at a
+// time, one coalesced load a lane and a shuffle, and its 8 results leave
+// in one store. Wider rows take a loop that reads both rows a task.
+//
+// P: the requests of its probes. A warp takes 32 consecutive tasks, a lane
+// each, and walks the lanes' lists FT(u) in step, slot by slot. In
+// tri_support's order the lanes of a run of equal u load the same id at
+// the same step, which the load serves as one request (the run's list is
+// read once, not once a task), and then probe the same row at their own
+// words, which the load serves one 32-byte sector at a time: the run's
+// tasks whose bits lie in one sector of x's row share one request (their v
+// ascend, so most share it). The ids of P_STEP = 8 slots are loaded before
+// their words, so a lane has 8 probes in flight. No lane waits for
+// another's sum: each keeps its own count.
+//
+// I: a group of 8 lanes a task (4 tasks a warp, the warps grid-striding
+// over the tasks); the lanes take the shorter list's ids and binary-search
+// the longer list (gm::in_sorted), and the group's width-8 shuffle sum is
+// stored by its lane 0.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TG = 8;                      // lanes a task
-constexpr int TPW = 32 / TG;               // tasks a warp a round
+constexpr int TG = 8;                      // lanes a task (S, I)
+constexpr int TPW = 32 / TG;               // groups a warp (S); tasks a round (I)
+constexpr int S_CHUNKS = 4;                // S: 16-byte chunks a lane caches
+constexpr int S_WINDOW = 128;              // S: tasks a warp, 32 a group
+constexpr int P_STEP = 8;                  // P: list slots a lane a step
 
 __device__ __forceinline__ uint32_t group_sum(uint32_t c) {
 #pragma unroll
@@ -55,34 +82,79 @@ __device__ __forceinline__ int32_t ft_list(const int64_t* __restrict__ rowptr,
   return int32_t(f < 0 ? 0 : (f < b - a ? f : b - a));
 }
 
+__device__ __forceinline__ uint32_t popc_and(uint4 x, uint4 y) {
+  return __popc(x.x & y.x) + __popc(x.y & y.y) + __popc(x.z & y.z) +
+         __popc(x.w & y.w);
+}
+
+// S. CACHED: rows of at most TG * S_CHUNKS chunks, the src row kept in
+// registers a run; otherwise both rows are read a task.
+template <bool CACHED>
 __global__ void __launch_bounds__(gm::BLOCK)
 tri_bitmap_kernel(const uint4* __restrict__ tab, int32_t v, int32_t chunks,
                   const int32_t* __restrict__ src,
                   const int32_t* __restrict__ dst, int64_t n,
                   int32_t* __restrict__ out) {
+  constexpr int seg = S_WINDOW / TPW;      // a group's tasks
   const int lane = threadIdx.x & 31, gl = lane % TG;
+  const unsigned gmask = 0xFFu << (lane & ~(TG - 1));
   const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t base = warp * TPW; base < n; base += warps * TPW) {
-    const int64_t t = base + lane / TG;       // the warp's rounds agree
-    uint32_t c = 0;
-    if (t < n) {
-      const int32_t a = __ldg(src + t), b = __ldg(dst + t);
-      if (a >= 0 && a < v && b >= 0 && b < v) {
-        const uint4* ra = tab + int64_t(a) * chunks;
-        const uint4* rb = tab + int64_t(b) * chunks;
-        for (int q = gl; q < chunks; q += TG) {
-          const uint4 x = __ldg(ra + q), y = __ldg(rb + q);
-          c += __popc(x.x & y.x) + __popc(x.y & y.y) + __popc(x.z & y.z) +
-               __popc(x.w & y.w);
+  for (int64_t w0 = warp * S_WINDOW; w0 < n; w0 += warps * S_WINDOW) {
+    const int64_t s0 = w0 + int64_t(lane / TG) * seg;
+    const int64_t s1 = s0 + seg < n ? s0 + seg : n;
+    int32_t cur = -1;                      // the src whose row ra holds
+    uint4 ra[S_CHUNKS];
+#pragma unroll
+    for (int k = 0; k < S_CHUNKS; ++k) ra[k] = make_uint4(0, 0, 0, 0);
+    for (int64_t sb = s0; sb < s1; sb += TG) {   // group-uniform bounds
+      const int64_t ti = sb + gl;
+      const int32_t ia = ti < s1 ? __ldg(src + ti) : -1;
+      const int32_t ib = ti < s1 ? __ldg(dst + ti) : -1;
+      const int m = int(s1 - sb < TG ? s1 - sb : TG);
+      uint32_t res = 0;
+      for (int j = 0; j < m; ++j) {
+        const int32_t a = __shfl_sync(gmask, ia, j, TG);
+        const int32_t b = __shfl_sync(gmask, ib, j, TG);
+        uint32_t c = 0;
+        if (a >= 0 && a < v && b >= 0 && b < v) {
+          const uint4* rb = tab + int64_t(b) * chunks;
+          if (CACHED) {
+            uint4 y[S_CHUNKS];
+#pragma unroll
+            for (int k = 0; k < S_CHUNKS; ++k) {
+              const int q = gl + TG * k;
+              y[k] = q < chunks ? __ldg(rb + q) : make_uint4(0, 0, 0, 0);
+            }
+            if (a != cur) {                // a new run: its src row, once
+              cur = a;
+              const uint4* rs = tab + int64_t(a) * chunks;
+#pragma unroll
+              for (int k = 0; k < S_CHUNKS; ++k) {
+                const int q = gl + TG * k;
+                ra[k] = q < chunks ? __ldg(rs + q) : make_uint4(0, 0, 0, 0);
+              }
+            }
+#pragma unroll
+            for (int k = 0; k < S_CHUNKS; ++k) c += popc_and(ra[k], y[k]);
+          } else {
+            const uint4* rs = tab + int64_t(a) * chunks;
+            for (int q = gl; q < chunks; q += TG)
+              c += popc_and(__ldg(rs + q), __ldg(rb + q));
+          }
         }
+#pragma unroll
+        for (int o = TG / 2; o > 0; o >>= 1)
+          c += __shfl_xor_sync(gmask, c, o, TG);
+        if (gl == j) res = c;
       }
+      if (ti < s1) out[ti] = int32_t(res);
     }
-    c = group_sum(c);
-    if (gl == 0 && t < n) out[t] = int32_t(c);
   }
 }
 
+// P. A warp takes 32 consecutive tasks, a lane each, and walks its lanes'
+// lists in step, P_STEP slots a step (the ids first, then the words).
 __global__ void __launch_bounds__(gm::BLOCK)
 tri_probe_kernel(const int64_t* __restrict__ rowptr,
                  const int32_t* __restrict__ colidx,
@@ -91,27 +163,34 @@ tri_probe_kernel(const int64_t* __restrict__ rowptr,
                  const int32_t* __restrict__ u,
                  const int32_t* __restrict__ vloc, int64_t n,
                  int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31, gl = lane % TG;
+  const int lane = threadIdx.x & 31;
   const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t base = warp * TPW; base < n; base += warps * TPW) {
-    const int64_t t = base + lane / TG;
-    uint32_t c = 0;
+  for (int64_t base = warp * 32; base < n; base += warps * 32) {
+    const int64_t t = base + lane;
+    int32_t len = 0, wi = 0, sh = 0;
+    int64_t st = 0;
     if (t < n) {
       const int32_t vl = __ldg(vloc + t);
-      int64_t st = 0;
-      const int32_t len = vl >= 0 && vl < 32 * words
-                              ? ft_list(rowptr, ftw, v, __ldg(u + t), &st)
-                              : 0;
-      const int32_t wi = vl >> 5, sh = vl & 31;
-      for (int32_t i = gl; i < len; i += TG) {
-        const int32_t x = __ldg(colidx + st + i);
-        if (x >= 0 && x < v)
-          c += (__ldg(tab + int64_t(x) * words + wi) >> sh) & 1u;
+      if (vl >= 0 && vl < 32 * words) {
+        len = ft_list(rowptr, ftw, v, __ldg(u + t), &st);
+        wi = vl >> 5;
+        sh = vl & 31;
       }
     }
-    c = group_sum(c);
-    if (gl == 0 && t < n) out[t] = int32_t(c);
+    const int32_t m = __reduce_max_sync(gm::FULL_MASK, len);
+    uint32_t c = 0;
+    for (int32_t i = 0; i < m; i += P_STEP) {
+      int32_t x[P_STEP];
+#pragma unroll
+      for (int k = 0; k < P_STEP; ++k)
+        x[k] = i + k < len ? __ldg(colidx + st + i + k) : -1;
+#pragma unroll
+      for (int k = 0; k < P_STEP; ++k)
+        if (x[k] >= 0 && x[k] < v)
+          c += (__ldg(tab + int64_t(x[k]) * words + wi) >> sh) & 1u;
+    }
+    if (t < n) out[t] = int32_t(c);
   }
 }
 
@@ -153,9 +232,12 @@ tri_lists_kernel(const int64_t* __restrict__ rowptr,
 extern "C" int gm_tri_bitmap(const void* tab, int64_t v, int64_t words,
                              const void* src, const void* dst, int64_t n,
                              void* out, int64_t n_blocks, void* stream) {
-  tri_bitmap_kernel<<<unsigned(n_blocks), gm::BLOCK, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(tab), int32_t(v), int32_t(words / 4),
+  const int32_t chunks = int32_t(words / 4);
+  auto kernel = chunks <= TG * S_CHUNKS ? tri_bitmap_kernel<true>
+                                        : tri_bitmap_kernel<false>;
+  kernel<<<unsigned(n_blocks), gm::BLOCK, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(tab), int32_t(v), chunks,
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst), n,
       static_cast<int32_t*>(out));
   return int(cudaGetLastError());

@@ -24,6 +24,14 @@ id (a CSR of a simple graph).
 Each call with a task is one launch, counted on the wrapper's .launches; a
 call with none launches nothing. On a CUDA tensor a wrapper launches its
 kernel or raises; it takes its plain version only for CPU tensors.
+
+S and P take any task order, and are fast in tri_support's (DAG CSR order:
+runs of equal src, dst ascending in a run). S: a warp takes a window of
+S_WINDOW consecutive tasks and keeps a run's src row in registers. P: a
+warp takes 32 consecutive tasks, a lane each, and walks their lists in
+step, so a run's lanes read its list FT(u) once and share each 32-byte
+sector of a row that their bits fall in. bitmap_loads and probe_loads
+count what a call loads under these designs.
 """
 from __future__ import annotations
 
@@ -36,8 +44,17 @@ import torch
 from . import _build
 from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
 
-#: lanes a task (csrc/tri_support.cu::TG)
+#: lanes a task (csrc/tri_support.cu::TG: S and I)
 TASK_LANES = 8
+#: tasks an S warp takes in order, a quarter to each group of TASK_LANES
+#: lanes (csrc/tri_support.cu::S_WINDOW)
+S_WINDOW = 128
+#: S keeps src rows of at most this many words in registers
+S_CACHED_WORDS = 128
+#: tasks a P warp takes, a lane each
+P_WINDOW = 32
+#: words of a 32-byte sector, what one P probe request serves
+SECTOR_WORDS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +158,9 @@ def tri_bitmap(tab: torch.Tensor, src: torch.Tensor,
     out = torch.empty(n, dtype=torch.int32, device=tab.device)
     if n == 0:
         return out
-    nb = n_blocks(n * TASK_LANES)
     _build.check_launch(_build.entry("gm_tri_bitmap")(
         tab.data_ptr(), tab.shape[0], tab.shape[1], src.data_ptr(),
-        dst.data_ptr(), n, out.data_ptr(), nb,
+        dst.data_ptr(), n, out.data_ptr(), n_blocks(-(-n // S_WINDOW) * 32),
         _build.stream(tab.device)), "tri_bitmap")
     tri_bitmap.launches += 1
     return out
@@ -186,7 +202,7 @@ def tri_probe(ft: FtLists, tab: torch.Tensor, u: torch.Tensor,
     _build.check_launch(_build.entry("gm_tri_probe")(
         ft.rowptr.data_ptr(), ft.colidx.data_ptr(), ft.ftw.data_ptr(),
         tab.data_ptr(), tab.shape[0], tab.shape[1], u.data_ptr(),
-        vloc.data_ptr(), n, out.data_ptr(), n_blocks(n * TASK_LANES),
+        vloc.data_ptr(), n, out.data_ptr(), n_blocks(n),
         _build.stream(tab.device)), "tri_probe")
     tri_probe.launches += 1
     return out
@@ -215,6 +231,69 @@ def tri_probe_plain(ft: FtLists, tab: torch.Tensor, u: torch.Tensor,
                              device=tab.device).index_add_(
                                  0, task, bit.to(torch.int32))
     return out
+
+
+def _starts(ids: torch.Tensor, window=None) -> torch.Tensor:
+    """bool [n]: task t opens a run (t = 0 or ids[t] != ids[t - 1]), and,
+    with a window, also where t is a multiple of it."""
+    n = ids.shape[0]
+    new = torch.ones(n, dtype=torch.bool, device=ids.device)
+    new[1:] = ids[1:] != ids[:-1]
+    if window:
+        new[::window] = True
+    return new
+
+
+def bitmap_loads(tab: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                 window: int = S_WINDOW) -> dict:
+    """What kernel S loads for one call with `window` tasks a warp: its
+    runs of equal src, windows, the src rows it reads (a row a run within
+    a group's quarter window; a task's when rows are wider than
+    S_CACHED_WORDS), the dst rows (one a task with both ids in [0, V)) and
+    their bytes."""
+    n, (v, words) = src.shape[0], tab.shape
+    valid = (src >= 0) & (src < v) & (dst >= 0) & (dst < v)
+    idx = torch.nonzero(valid).flatten()
+    a, seg = src[idx], window // 4
+    if words <= S_CACHED_WORDS:
+        loads = _starts(a)
+        loads[1:] |= (idx[1:] // seg) != (idx[:-1] // seg)
+        src_rows = int(loads.sum())
+    else:
+        src_rows = idx.numel()
+    return dict(tasks=n, runs=int(_starts(src).sum()),
+                windows=-(-n // window), src_rows=src_rows,
+                dst_rows=idx.numel(),
+                row_bytes=(src_rows + idx.numel()) * 4 * words)
+
+
+def probe_loads(ft: FtLists, tab: torch.Tensor, u: torch.Tensor,
+                vloc: torch.Tensor, window=P_WINDOW) -> dict:
+    """What kernel P loads for one call, its tasks taken `window` at a time
+    (None: whole runs), counting only tasks with a non-empty list and a bit
+    in [0, 32 words): its runs of equal u; the lists it reads, one a run
+    within a window (`lists`, `list_ids`); its sector requests, for each
+    such run and list slot with an id in [0, V) one a distinct 32-byte
+    sector of the slot's row that the run's bits fall in (`sectors`),
+    against the `probes` of one word a slot a task."""
+    v, words = tab.shape
+    ln = ft.lengths(u)[1]
+    vl = vloc.long()
+    idx = torch.nonzero((ln > 0) & (vl >= 0) & (vl < 32 * words)).flatten()
+    rid = torch.cumsum(_starts(u, window).long(), 0)[idx]
+    new = _starts(rid)                     # a run's first such task
+    uid, inv = torch.unique(u[idx].long(), return_inverse=True)
+    task, x = ft.slots(uid)
+    slots = torch.zeros(uid.shape[0], dtype=torch.int64, device=u.device
+                        ).index_add_(0, task, ((x >= 0) & (x < v)).long())[inv]
+    key = rid * (words // SECTOR_WORDS + 1) + (vl[idx] >> 5) // SECTOR_WORDS
+    keys, kinv = torch.unique(key, return_inverse=True)
+    per_key = torch.zeros(keys.shape[0], dtype=torch.int64, device=u.device
+                          ).scatter_(0, kinv, slots)
+    return dict(tasks=u.shape[0], runs=int(_starts(u).sum()),
+                windows=-(-u.shape[0] // window) if window else None,
+                lists=int(new.sum()), list_ids=int(ln[idx][new].sum()),
+                sectors=int(per_key.sum()), probes=int(slots.sum()))
 
 
 def tri_lists(ft: FtLists, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

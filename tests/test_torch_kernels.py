@@ -863,28 +863,100 @@ def sgl_ids(rng, dev, lo, hi, n):
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize("w", [8, 32, 128])
-def test_tri_bitmap(dev, w):
+def run_ids(rng, v, n, order):
+    """n task ids in sorted runs of 150-300 tasks (longer than the kernels'
+    windows, at most 128) or in runs of 1, with ids outside [0, v) inside
+    the runs."""
+    if order == "runs":
+        lens = rng.integers(150, 301, n // 150 + 1)
+        x = np.repeat(np.sort(rng.integers(0, v, lens.size)), lens)[:n]
+    else:
+        x = np.resize(np.arange(v), n)
+    x = x.astype(np.int64)
+    x[7::131], x[11::173], x[13::197] = -1, v, SENTINEL
+    return x.astype(np.int32)
+
+
+def ascending_in_runs(ids, vals):
+    """vals sorted ascending inside each run of equal ids (the engine's
+    order)."""
+    run = np.cumsum(np.r_[True, ids[1:] != ids[:-1]])
+    return vals[np.lexsort((vals, run))]
+
+
+def sgl_order(rng, dev, order, lo, hi, v, n, vals=None):
+    """(ids, per-task values) on `dev`: random ids in [lo, hi) with values
+    from sgl_ids, or run_ids with `vals` ascending in each run."""
+    if order == "random":
+        return sgl_ids(rng, dev, lo, hi, n), None
+    ids = run_ids(rng, v, n, order)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(
+        ascending_in_runs(ids, vals).astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("order", ["random", "runs", "runs_of_1"])
+@pytest.mark.parametrize("w", [8, 32, 128, 160])
+def test_tri_bitmap(dev, w, order):
+    """Random ids (runs of ~1), sorted runs longer than a window and runs
+    of 1; 160 words take the kernel's uncached loop."""
     rng, tab, _ = sgl_tables(dev, w, w=w, max_deg=4)
     v = tab.shape[0]
-    src, dst = sgl_ids(rng, dev, -3, v + 3, 50001), \
-        sgl_ids(rng, dev, 0, v, 50001)
+    src, dst = sgl_order(rng, dev, order, -3, v + 3, v, 50001,
+                         rng.integers(-3, v + 3, 50001))
+    if dst is None:
+        dst = sgl_ids(rng, dev, 0, v, 50001)
     n0 = cuda_tri.tri_bitmap.launches
     got = cuda_tri.tri_bitmap(tab, src, dst)
     assert cuda_tri.tri_bitmap.launches == n0 + 1
     assert torch.equal(got, cuda_tri.tri_bitmap_plain(tab, src, dst))
 
 
-@pytest.mark.parametrize("w", [8, 128])
-def test_tri_probe(dev, w):
+def edge_vloc(rng, w, n):
+    """Bits at sector and word edges (31/32, 255/256), the last bit, just
+    outside [0, 32 w), and random."""
+    edges = np.array([b for b in (0, 31, 32, 255, 256, 32 * w - 1, -1,
+                                  32 * w) if b <= 32 * w])
+    vl = rng.integers(0, 32 * w, n)
+    vl[::3] = rng.choice(edges, vl[::3].size)
+    return vl
+
+
+@pytest.mark.parametrize("order", ["random", "runs", "runs_of_1"])
+@pytest.mark.parametrize("w", [8, 12, 128])
+def test_tri_probe(dev, w, order):
+    """Random tasks, sorted runs longer than a warp's 32 tasks and runs of
+    1, with bits at sector edges and bit 31 of every word; lists up to 152
+    slots; 12 words end on half a 32-byte sector."""
     rng, tab, ft = sgl_tables(dev, 10 + w, w=w)
     v = tab.shape[0]
-    u = sgl_ids(rng, dev, -2, v + 2, 40000)
-    vloc = sgl_ids(rng, dev, -2, 32 * w + 2, 40000)
-    vloc[:500] = 31
+    tab |= -2**31
+    u, vloc = sgl_order(rng, dev, order, -2, v + 2, v, 40000,
+                        edge_vloc(rng, w, 40000))
+    if vloc is None:
+        vloc = sgl_ids(rng, dev, -2, 32 * w + 2, 40000)
+        vloc[:500] = 31
+    n0 = cuda_tri.tri_probe.launches
     got = cuda_tri.tri_probe(ft, tab, u, vloc)
+    assert cuda_tri.tri_probe.launches == n0 + 1
     want = cuda_tri.tri_probe_plain(ft, tab, u, vloc)
-    assert torch.equal(got, want) and want[:500].any()
+    assert torch.equal(got, want) and want[(vloc & 31) == 31].any()
+
+
+def test_tri_probe_unaligned_table(dev):
+    """A 13-word table that starts 4 bytes past a 16-byte edge."""
+    rng, tab, ft = sgl_tables(dev, 3, w=13)
+    v = tab.shape[0]
+    flat = torch.empty(v * 13 + 1, dtype=torch.int32, device=dev)
+    ut = flat[1:].view(v, 13)
+    ut.copy_(tab)
+    assert ut.data_ptr() % 16
+    u, vloc = sgl_order(rng, dev, "runs", -2, v + 2, v, 40000,
+                        edge_vloc(rng, 13, 40000))
+    n0 = cuda_tri.tri_probe.launches
+    got = cuda_tri.tri_probe(ft, ut, u, vloc)
+    assert cuda_tri.tri_probe.launches == n0 + 1
+    want = cuda_tri.tri_probe_plain(ft, tab, u, vloc)
+    assert torch.equal(got, want) and want.any()
 
 
 def test_tri_lists(dev):

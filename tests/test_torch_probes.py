@@ -7,7 +7,8 @@ import torch
 
 from graphminer_tpu_torch.ops import cuda_check
 from graphminer_tpu_torch.scripts import (launch_check, prof_breakdown,
-                                          prof_rectangle, prof_window)
+                                          prof_rectangle, prof_tri,
+                                          prof_window)
 
 
 def test_times_two_plain_wraps_like_int32():
@@ -112,11 +113,30 @@ def test_tail_bytes_counts_each_named_row_prefix_once(scale, core):
 @pytest.mark.parametrize("script,argv", [
     (launch_check, []), (prof_breakdown, []),
     (prof_window, ["1024", "256", "128", "8"]),
-    (prof_rectangle, ["--scale", "8"])])
+    (prof_rectangle, ["--scale", "8"]), (prof_tri, ["--scale", "8"])])
 def test_scripts_need_a_card_by_default(monkeypatch, script, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         script.main(argv)
+
+
+def test_prof_tri_tasks_on_cpu():
+    """prof_tri's S and P tasks at scale 10 give tri_support's per-edge
+    support, and what S and P load adds up."""
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import cuda_tri, tri_support
+    g = rmat(10, 16, seed=7)
+    s, p = prof_tri.tasks(g, core=256, device="cpu")
+    want = tri_support.tri_support(g, core=256, device="cpu")
+    assert s[1].numel() == want.src.size and 0 < p[2].numel() < s[1].numel()
+    assert np.array_equal(s[1].numpy(), want.src)
+    assert (cuda_tri.tri_bitmap_plain(*s) <= want.tri).all()
+    sl = cuda_tri.bitmap_loads(*s)
+    assert sl["runs"] <= sl["src_rows"] <= sl["dst_rows"] == s[1].numel()
+    pl = cuda_tri.probe_loads(*p)
+    once = cuda_tri.probe_loads(*p, window=None)
+    assert once["sectors"] <= pl["sectors"] <= pl["probes"]
+    assert once["lists"] <= pl["lists"] <= pl["runs"] + pl["windows"]
 
 
 def test_prof_rectangle_on_cpu(capsys):

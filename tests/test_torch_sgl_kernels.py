@@ -183,3 +183,201 @@ def test_fast_house_still_exits_naming_roadmap():
     with pytest.raises(SystemExit) as e:
         sgl_count(rmat(8, 8, seed=1), "house", fast=True, device="cpu")
     assert "ROADMAP.md" in str(e.value) and "item 6c" in str(e.value)
+
+
+# --- S and P on the task orders their windows meet -------------------------
+#
+# tri_support hands S and P their tasks in DAG CSR order: runs of equal src
+# (u), dst (vl) ascending in a run. S keeps a run's src row between the
+# tasks of a window, P's lanes share a run's list and sectors within a warp
+# of 32 tasks, so the cases below give runs longer than the largest window,
+# runs of 1, no order at all, runs across window edges, ids outside [0, V)
+# inside runs, bits on both sides of a sector edge and bit 31 of every
+# word.
+
+#: S's windows (cuda_tri.S_WINDOW and the variants measured beside it)
+WINDOWS = (32, 64, 128)
+ORDERS = ("long_runs", "runs_of_1", "unsorted", "window_edges")
+N_ORDER = 1500
+
+
+def ordered_ids(rng, order, v, n=N_ORDER):
+    """n task ids in [0, v) in `order`, with ids outside [0, v) inside the
+    runs."""
+    if order == "unsorted":
+        x = rng.integers(0, v, n)
+    elif order == "runs_of_1":
+        x = np.sort(rng.choice(v, min(n, v), replace=False))
+        x = np.resize(x, n)                      # ascending, then again
+    else:
+        lens = (rng.integers(150, 301, n) if order == "long_runs" else
+                np.resize([29, 37, 61, 5, 100, 1, 127, 3], n))
+        ids = np.sort(rng.integers(0, v, lens.size))
+        x = np.repeat(ids, lens)[:n]
+    x = x.astype(np.int64)
+    x[7::131] = -1
+    x[11::173] = v
+    x[13::197] = SENTINEL
+    return x.astype(np.int32)
+
+
+def within_runs(rng, ids, values, order):
+    """values re-sorted ascending inside each run of equal ids (the
+    engine's order), left as they are for the unsorted order."""
+    if order == "unsorted":
+        return values
+    key = np.lexsort((values, np.cumsum(np.r_[True, ids[1:] != ids[:-1]])))
+    return values[key]
+
+
+def edge_bits(rng, words, n):
+    """Bit indices in [0, 32 words): sector and word edges (31/32, 255/256),
+    the last bit, and random ones."""
+    edges = [b for b in (0, 31, 32, 255, 256, 32 * words - 1)
+             if b < 32 * words]
+    vl = rng.integers(0, 32 * words, n)
+    vl[::3] = rng.choice(edges, vl[::3].size)
+    return vl.astype(np.int32)
+
+
+def bit31_table(rng, v, w):
+    tab = words(rng, v, w)
+    tab |= np.int32(-2**31)                        # bit 31 of every word
+    return tab
+
+
+def model_bitmap(tab, src, dst, window):
+    """Kernel S's walk (csrc/tri_support.cu::tri_bitmap_kernel) in numpy:
+    the window's quarters one after another, each keeping the row of the
+    last src it loaded (rows of at most 128 words; wider rows are read a
+    task). Returns (out, src rows loaded)."""
+    v, w = tab.shape
+    tu = tab.view(np.uint32)
+    n, seg = src.size, window // 4
+    out = np.zeros(n, np.int32)
+    loads = 0
+    for s0 in range(0, n, seg):
+        cur, row = -1, None
+        for t in range(s0, min(s0 + seg, n)):
+            a, b = int(src[t]), int(dst[t])
+            if not (0 <= a < v and 0 <= b < v):
+                continue
+            if w > cuda_tri.S_CACHED_WORDS or a != cur:
+                cur, row = a, tu[a]
+                loads += 1
+            out[t] = sum(bin(int(x)).count("1") for x in row & tu[b])
+    return out, loads
+
+
+def model_probe(rowptr, colidx, ftw, tab, u, vl):
+    """Kernel P's walk (csrc/tri_support.cu::tri_probe_kernel) in numpy:
+    32 tasks a warp, a lane each; at step i every lane whose task has a bit
+    in [0, 32 words) and a list longer than i probes its slot i. Counts,
+    as probe_loads names them, the lists the warp's runs of equal u read
+    and, per step and run, the distinct 32-byte sectors of the slot's row
+    that the run's bits fall in (one request each). Returns (out,
+    counts)."""
+    v, w = tab.shape
+    tu = tab.view(np.uint32)
+    n = u.size
+    out = np.zeros(n, np.int32)
+    got = dict(lists=0, list_ids=0, sectors=0, probes=0)
+    run = np.cumsum(np.r_[True, u[1:] != u[:-1]] | (np.arange(n) % 32 == 0))
+    for w0 in range(0, n, 32):
+        lists = {}
+        for t in range(w0, min(w0 + 32, n)):
+            a, b = int(u[t]), int(vl[t])
+            if 0 <= a < v and 0 <= b < 32 * w:
+                ln = min(int(ftw[a]), int(rowptr[a + 1] - rowptr[a]))
+                if ln > 0:
+                    lists[t] = colidx[rowptr[a]:rowptr[a] + ln]
+        read = {run[t]: x.size for t, x in lists.items()}
+        got["lists"] += len(read)
+        got["list_ids"] += sum(read.values())
+        for i in range(max((x.size for x in lists.values()), default=0)):
+            requests = set()
+            for t, lst in lists.items():
+                x = int(lst[i]) if i < lst.size else -1
+                if 0 <= x < v:
+                    wi = int(vl[t]) >> 5
+                    out[t] += (tu[x, wi] >> (int(vl[t]) & 31)) & 1
+                    requests.add((run[t], x, wi // cuda_tri.SECTOR_WORDS))
+                    got["probes"] += 1
+            got["sectors"] += len(requests)
+    return out, got
+
+
+@pytest.mark.parametrize("w", [8, 32, 128, 160])
+@pytest.mark.parametrize("order", ORDERS)
+def test_tri_bitmap_orders(order, w):
+    """S's plain version against JAX's _bitmap_tri on each task order, the
+    numpy model of the kernel's windows against both, and bitmap_loads
+    against the rows the model loads, at each window."""
+    rng = np.random.default_rng(100 * ORDERS.index(order) + w)
+    v = 400
+    tab = bit31_table(rng, v, w)
+    src = ordered_ids(rng, order, v)
+    dst = within_runs(rng, src, rng.integers(-3, v + 3, src.size)
+                      .astype(np.int32), order)
+    want = np.asarray(jts._bitmap_tri(jnp.asarray(tab), jnp.asarray(src),
+                                      jnp.asarray(dst), words=w,
+                                      chunk=512))[:src.size]
+    got = cuda_tri.tri_bitmap_plain(t(tab), t(src), t(dst))
+    assert np.array_equal(got.numpy(), want) and want.any()
+    for window in WINDOWS:
+        out, loads = model_bitmap(tab, src, dst, window)
+        assert np.array_equal(out, want)
+        assert cuda_tri.bitmap_loads(t(tab), t(src), t(dst), window)[
+            "src_rows"] == loads
+    runs = cuda_tri.bitmap_loads(t(tab), t(src), t(dst))["runs"]
+    assert runs == 1 + int((src[1:] != src[:-1]).sum())
+
+
+@pytest.mark.parametrize("w", [16, 12])
+@pytest.mark.parametrize("order", ORDERS)
+def test_tri_probe_orders(order, w):
+    """P's plain version against JAX's _subcore_bit_probe on each task
+    order (lists past 32 slots, bits at sector edges and bit 31 of every
+    word; 12 words end on half a sector), the numpy model of the kernel's
+    warps against both, and probe_loads against what the model counts."""
+    rng = np.random.default_rng(5000 + 100 * ORDERS.index(order) + w)
+    v = 300
+    tab = bit31_table(rng, v, w)
+    rowptr, colidx, ftw = random_csr(rng, v, 200)
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    u = ordered_ids(rng, order, v)
+    vl = within_runs(rng, u, edge_bits(rng, w, u.size), order)
+    wa = int(max(1, min(ftw.max(), np.diff(rowptr).max())))
+    want = np.asarray(jts._subcore_bit_probe(
+        jnp.asarray(tab.reshape(-1)),
+        jnp.asarray(jax_lists(rowptr, colidx, ftw, u, wa)), jnp.asarray(vl),
+        wa=wa, words=w, chunk=128))[:u.size]
+    got = cuda_tri.tri_probe_plain(ft, t(tab), t(u), t(vl))
+    assert np.array_equal(got.numpy(), want)
+    assert want.any() and want[(vl & 31) == 31].any()
+    out, counts = model_probe(rowptr, colidx, ftw, tab, u, vl)
+    assert np.array_equal(out, want)
+    est = cuda_tri.probe_loads(ft, t(tab), t(u), t(vl))
+    assert {k: est[k] for k in counts} == counts
+    assert est["sectors"] <= est["probes"]
+    once = cuda_tri.probe_loads(ft, t(tab), t(u), t(vl), window=None)
+    assert once["sectors"] <= est["sectors"]
+
+
+def test_tri_probe_vl_outside_and_ids_outside():
+    """The model and plain P agree where bits lie outside [0, 32 words)
+    and ids outside [0, V) sit inside runs (JAX clips such bits, so it is
+    left out here)."""
+    rng = np.random.default_rng(7)
+    v, w = 300, 16
+    tab = bit31_table(rng, v, w)
+    rowptr, colidx, ftw = random_csr(rng, v, 200)
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    u = ordered_ids(rng, "long_runs", v)
+    vl = within_runs(rng, u, rng.integers(-40, 32 * w + 40, u.size)
+                     .astype(np.int32), "long_runs")
+    want = cuda_tri.tri_probe_plain(ft, t(tab), t(u), t(vl)).numpy()
+    out, _ = model_probe(rowptr, colidx, ftw, tab, u, vl)
+    assert np.array_equal(out, want)
+    bad = (vl < 0) | (vl >= 32 * w) | (u < 0) | (u >= v)
+    assert bad.any() and not want[bad].any() and want[~bad].any()
