@@ -2321,11 +2321,12 @@ def pairs_checks(plan, tab, label):
 
 
 def sp_runs_checks():
-    """S and P against their plain versions on random tables (bit 31 in
+    """S, P and I against their plain versions on random tables (bit 31 in
     every word, 128 words) with tasks in sorted runs of 150-300 (longer
     than the kernels' windows), ids outside [0, V) inside the runs, values
     ascending in each run, P's bits at sector edges (31/32, 255/256, the
-    last bit, just outside [0, 32 words)) and lists up to 160 slots."""
+    last bit, just outside [0, 32 words)) and lists up to 160 slots; I also
+    on lists up to 1,500 ids, half its runs' u and w among those."""
     from graphminer_tpu_torch.ops import cuda_tri
     rng = np.random.default_rng(13)
     v, w, n = 20000, 128, 400_000
@@ -2356,6 +2357,30 @@ def sp_runs_checks():
         compare(name, fn(*args), plain(*args),
                 f"sorted long runs, {n} tasks, {loads['runs']} runs")
         say(f"{name} == plain on sorted long runs: {loads}")
+    # I: a CSR with 300 long rows (600-1,500 ids)
+    n = 100_000
+    long_v = rng.choice(v, 300, replace=False)
+    deg[long_v] = rng.integers(600, 1501, 300)
+    rowptr = np.concatenate([[0], np.cumsum(deg)])
+    colidx = np.concatenate([np.sort(rng.choice(v, d, replace=False))
+                             for d in deg]).astype(np.int32)
+    ft = cuda_tri.FtLists.from_csr(rowptr, colidx, deg, dev)
+    lens = rng.integers(150, 301, n // 150 + 1)
+    heads = np.where(rng.random(lens.size) < 0.5,
+                     rng.choice(long_v, lens.size),
+                     rng.integers(0, v, lens.size))
+    ids = np.repeat(np.sort(heads), lens)[:n]
+    ids[7::131], ids[11::173], ids[13::197] = -1, v, 2**31 - 1
+    run = np.cumsum(np.r_[True, ids[1:] != ids[:-1]])
+    ws = np.where(rng.random(n) < 0.5, rng.choice(long_v, n),
+                  rng.integers(-3, v + 3, n))
+    i = (ft, t(ids), t(ws[np.lexsort((ws, run))]))
+    loads = cuda_tri.list_loads(*i)
+    check(int(ft.lengths(i[1])[1].max()) > 1000, "tri_lists: no long list")
+    compare("tri_lists", cuda_tri.tri_lists(*i), cuda_tri.tri_lists_plain(*i),
+            f"sorted long runs, lists up to 1,500 ids, {n} tasks")
+    say(f"tri_lists == plain on sorted long runs, lists up to 1,500 ids: "
+        f"{loads}")
 
 
 def sgl_kernel_checks(inp, label):
@@ -2386,11 +2411,12 @@ def sgl_kernel_checks(inp, label):
 
 
 def sp_loads(inp):
-    """What S and P load at rmat18 under their designs (cuda_tri's
-    bitmap_loads and probe_loads): S's runs, windows and src rows against
-    the first design's two rows a task; P's runs, lists and 32-byte sector
-    requests (its warps' and once a run) against one probe a list slot a
-    task."""
+    """What S, P and I load at rmat18 under their designs (cuda_tri's
+    bitmap_loads, probe_loads and list_loads): S's runs, windows and src
+    rows against the first design's two rows a task; P's runs, lists and
+    32-byte sector requests (its warps' and once a run) against one probe a
+    list slot a task; I's runs, shorter-list ids, rounds, search loads and
+    sector requests, and its dependent loads against the first design's."""
     from graphminer_tpu_torch.ops import cuda_tri
     s = cuda_tri.bitmap_loads(*inp.s)
     say(f"S rmat18 ({cuda_tri.S_WINDOW} tasks a warp): {s['runs']} runs of "
@@ -2405,6 +2431,13 @@ def sp_loads(inp):
         f"{once['lists']}, {once['list_ids']} ids), {p['sectors']} 32-byte "
         f"sector requests (once a run {once['sectors']}; 18,346,857 "
         f"expected) against {p['probes']} one-word probes")
+    i = cuda_tri.list_loads(*inp.i)
+    say(f"I rmat18 ({cuda_tri.I_LANES} lanes a task, {cuda_tri.I_IDS} ids a "
+        f"lane a round): {i['runs']} runs of equal u, {i['short_ids']} ids "
+        f"of the shorter lists in {i['rounds']} rounds, {i['search_loads']} "
+        f"search loads, {i['sectors']} 32-byte sector requests, "
+        f"{i['chain']} dependent loads (first design: "
+        f"{i['first_chain']})")
 
 
 def sgl_timing(inp):
@@ -2441,7 +2474,7 @@ def sgl_timing(inp):
              4 * counts.numel() + 4 * plan.long_u.numel() + 8)):
         k_ms, kv = time_ms(lambda: fn(*args))
         p_ms, pv = pf.time_ms(lambda: plain(*args), "cuda", 1)
-        if name in ("tri_bitmap", "tri_probe"):
+        if name in ("tri_bitmap", "tri_probe", "tri_lists"):
             compare(name, kv, pv, f"rmat18, {n} tasks")
         b = pf.bound_ms(nbytes)
         res[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
@@ -2500,13 +2533,13 @@ def run_sgl(g18):
     """Phase 15: the diamond (tri_support) and rectangle engines against
     their goldens, S, P, I, W's write and pairs modes against their plain
     versions (every rmat14 task class and yardstick chunk, random pairs
-    inputs, the rmat14 level-0 plan and a forced split; S and P also on
+    inputs, the rmat14 level-0 plan and a forced split; S, P and I also on
     random sorted long runs and at rmat18), launch counts (S,
     P, I once a tri_support call; W's pairs mode once a rectangle count and
     its finish once when the level splits a row; no W write mode, X or
     torch._int_mm from the rectangle engine), the counts' host seconds,
     device ms, busy share and peak memory, and the kernels timed at rmat18
-    (with what S and P load). Returns (timings, {kernel: launches})."""
+    (with what S, P and I load). Returns (timings, {kernel: launches})."""
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops import rectangle as rc
     from graphminer_tpu_torch.ops import tri_support as ts

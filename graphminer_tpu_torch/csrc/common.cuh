@@ -39,18 +39,6 @@ struct FastDiv {
   }
 };
 
-// True iff x occurs in row[0:n], which is sorted ascending (SENTINEL pads
-// sort last). Lower-bound binary search through the read-only cache.
-__device__ __forceinline__ bool in_sorted(const int32_t* __restrict__ row,
-                                          int32_t n, int32_t x) {
-  int32_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int32_t mid = (lo + hi) >> 1;
-    if (__ldg(row + mid) < x) lo = mid + 1; else hi = mid;
-  }
-  return lo < n && __ldg(row + lo) == x;
-}
-
 // How many of the K ids x[0..K) occur in row[0:n] (sorted ascending, no
 // repeated id, n >= 1); SENTINEL ids count 0. Each id takes a branchless
 // lower-bound search whose step count depends on n alone, so the K

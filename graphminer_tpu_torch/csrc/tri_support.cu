@@ -20,12 +20,13 @@
 // [0, v) has an empty list). I takes rows without a repeated id, as a CSR of
 // a simple graph has them. Any task order gives the same result; the
 // engine's order (DAG CSR order: runs of equal src, dst ascending within a
-// run) is the fast one for S and P.
+// run) is the fast one.
 //
 // Bound: bytes. Each task's ids and its int32 result, each distinct row a
 // task names read once (S: two 16-byte-aligned bitmap rows; P: one 4-byte
-// word a list slot; I: the two lists). What holds S and P back is what they
-// move through L2 on top of that, so their designs cut it:
+// word a list slot; I: the two lists). What holds them back is what they
+// move through L2 on top of that, or the loads a lane waits on in turn, so
+// their designs cut it:
 //
 // S: the rows it streams. A warp takes a window of S_WINDOW = 128
 // consecutive tasks, and each of its four groups of 8 lanes a quarter of
@@ -49,25 +50,26 @@
 // their words, so a lane has 8 probes in flight. No lane waits for
 // another's sum: each keeps its own count.
 //
-// I: a group of 8 lanes a task (4 tasks a warp, the warps grid-striding
-// over the tasks); the lanes take the shorter list's ids and binary-search
-// the longer list (gm::in_sorted), and the group's width-8 shuffle sum is
-// stored by its lane 0.
+// I: the instructions of its searches. A group of I_LANES = 4 lanes takes
+// a task (8 a warp): the shorter list's ids, I_IDS = 3 a lane a round, are
+// searched in the longer list, the 3 searches of a lane in lockstep
+// (gm::count_in_sorted, a branchless lower bound, so 3 loads are in
+// flight and no lane waits on one load at a time), and the task's ids are
+// loaded a turn ahead. Four lanes leave fewer slots of a round empty on
+// short lists than eight; a whole warp on a task (its FT(u) staged once a
+// run in shared memory), hash tables of FT(u), a merge path, and the longer
+// list copied to shared memory each ran slower (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-constexpr int TG = 8;                      // lanes a task (S, I)
-constexpr int TPW = 32 / TG;               // groups a warp (S); tasks a round (I)
+constexpr int TG = 8;                      // S: lanes a task
+constexpr int TPW = 32 / TG;               // S: groups a warp
 constexpr int S_CHUNKS = 4;                // S: 16-byte chunks a lane caches
 constexpr int S_WINDOW = 128;              // S: tasks a warp, 32 a group
 constexpr int P_STEP = 8;                  // P: list slots a lane a step
-
-__device__ __forceinline__ uint32_t group_sum(uint32_t c) {
-#pragma unroll
-  for (int o = TG / 2; o > 0; o >>= 1) c += __shfl_down_sync(gm::FULL_MASK, c, o, TG);
-  return c;
-}
+constexpr int I_LANES = 4;                 // I: lanes a task
+constexpr int I_IDS = 3;                   // I: ids a lane searches at once
 
 // The list FT(x): its first id's offset and its length (0 for x outside
 // [0, v)).
@@ -194,6 +196,12 @@ tri_probe_kernel(const int64_t* __restrict__ rowptr,
   }
 }
 
+// I. A group of I_LANES lanes a task, 32 / I_LANES tasks a warp, the warps
+// grid-striding over the tasks. The group takes the shorter list's ids,
+// I_IDS a lane a round, searches them in lockstep in the longer list and
+// sums its hits by shuffle into its lane 0, which stores them. A task's two
+// ids are loaded a turn ahead, so its first dependent load is its lists'
+// bounds.
 __global__ void __launch_bounds__(gm::BLOCK)
 tri_lists_kernel(const int64_t* __restrict__ rowptr,
                  const int32_t* __restrict__ colidx,
@@ -201,26 +209,41 @@ tri_lists_kernel(const int64_t* __restrict__ rowptr,
                  const int32_t* __restrict__ u,
                  const int32_t* __restrict__ w, int64_t n,
                  int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31, gl = lane % TG;
+  constexpr int GROUPS = 32 / I_LANES;     // tasks a warp
+  constexpr int ROUND = I_LANES * I_IDS;   // shorter-list ids a group a round
+  const int lane = threadIdx.x & 31, gl = lane % I_LANES;
   const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t base = warp * TPW; base < n; base += warps * TPW) {
-    const int64_t t = base + lane / TG;
+  const int64_t step = warps * GROUPS;       // tasks the grid takes a turn
+  const int64_t t0 = warp * GROUPS + lane / I_LANES;
+  int32_t nu = t0 < n ? __ldg(u + t0) : -1, nw = t0 < n ? __ldg(w + t0) : -1;
+  for (int64_t t = t0; t - lane / I_LANES < n; t += step) {
+    const int32_t tu = nu, tw = nw;        // loaded a turn ago
+    nu = t + step < n ? __ldg(u + t + step) : -1;
+    nw = t + step < n ? __ldg(w + t + step) : -1;
     uint32_t c = 0;
     if (t < n) {
       int64_t sa = 0, sb = 0;
-      int32_t la = ft_list(rowptr, ftw, v, __ldg(u + t), &sa);
-      int32_t lb = ft_list(rowptr, ftw, v, __ldg(w + t), &sb);
+      int32_t la = ft_list(rowptr, ftw, v, tu, &sa);
+      int32_t lb = ft_list(rowptr, ftw, v, tw, &sb);
       if (la > lb) {                      // search the longer list
         const int64_t s = sa; sa = sb; sb = s;
         const int32_t l = la; la = lb; lb = l;
       }
-      for (int32_t i = gl; i < la; i += TG) {
-        const int32_t x = __ldg(colidx + sa + i);
-        if (x >= 0 && x < v) c += gm::in_sorted(colidx + sb, lb, x);
+      for (int32_t i0 = 0; i0 < la; i0 += ROUND) {  // la >= 1: lb >= 1
+        int32_t x[I_IDS];
+#pragma unroll
+        for (int k = 0; k < I_IDS; ++k) {
+          const int32_t i = i0 + gl + I_LANES * k;
+          const int32_t id = i < la ? __ldg(colidx + sa + i) : -1;
+          x[k] = id >= 0 && id < v ? id : gm::SENTINEL;  // SENTINEL adds 0
+        }
+        c += gm::count_in_sorted<I_IDS>(colidx + sb, lb, x);
       }
     }
-    c = group_sum(c);
+#pragma unroll
+    for (int o = I_LANES / 2; o > 0; o >>= 1)
+      c += __shfl_down_sync(gm::FULL_MASK, c, o, I_LANES);
     if (gl == 0 && t < n) out[t] = int32_t(c);
   }
 }

@@ -25,13 +25,15 @@ Each call with a task is one launch, counted on the wrapper's .launches; a
 call with none launches nothing. On a CUDA tensor a wrapper launches its
 kernel or raises; it takes its plain version only for CPU tensors.
 
-S and P take any task order, and are fast in tri_support's (DAG CSR order:
-runs of equal src, dst ascending in a run). S: a warp takes a window of
-S_WINDOW consecutive tasks and keeps a run's src row in registers. P: a
-warp takes 32 consecutive tasks, a lane each, and walks their lists in
-step, so a run's lanes read its list FT(u) once and share each 32-byte
-sector of a row that their bits fall in. bitmap_loads and probe_loads
-count what a call loads under these designs.
+The kernels take any task order, and are fast in tri_support's (DAG CSR
+order: runs of equal src, dst ascending in a run). S: a warp takes a
+window of S_WINDOW consecutive tasks and keeps a run's src row in
+registers. P: a warp takes 32 consecutive tasks, a lane each, and walks
+their lists in step, so a run's lanes read its list FT(u) once and share
+each 32-byte sector of a row that their bits fall in. I: a group of
+I_LANES lanes takes a task and searches the shorter list's ids, I_IDS a
+lane at a time in lockstep, in the longer list. bitmap_loads,
+probe_loads and list_loads count what a call loads under these designs.
 """
 from __future__ import annotations
 
@@ -44,10 +46,8 @@ import torch
 from . import _build
 from ._tensors import PLAIN_ELEMS, n_blocks, on_cuda, popcount32
 
-#: lanes a task (csrc/tri_support.cu::TG: S and I)
-TASK_LANES = 8
-#: tasks an S warp takes in order, a quarter to each group of TASK_LANES
-#: lanes (csrc/tri_support.cu::S_WINDOW)
+#: tasks an S warp takes in order, a quarter to each group of 8 lanes
+#: (csrc/tri_support.cu::S_WINDOW)
 S_WINDOW = 128
 #: S keeps src rows of at most this many words in registers
 S_CACHED_WORDS = 128
@@ -55,6 +55,10 @@ S_CACHED_WORDS = 128
 P_WINDOW = 32
 #: words of a 32-byte sector, what one P probe request serves
 SECTOR_WORDS = 8
+#: lanes an I task takes (csrc/tri_support.cu::I_LANES)
+I_LANES = 4
+#: ids of the shorter list an I lane searches at once (I_IDS)
+I_IDS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,6 +300,57 @@ def probe_loads(ft: FtLists, tab: torch.Tensor, u: torch.Tensor,
                 sectors=int(per_key.sum()), probes=int(slots.sum()))
 
 
+def _sectors(start: torch.Tensor, length: torch.Tensor, piece: int) -> int:
+    """32-byte sectors that reading the colidx ranges [start, start +
+    length) takes, each `piece` ids at a time from its start (one load
+    instruction of as many lanes)."""
+    n_pieces = (length + piece - 1) // piece
+    rng = torch.repeat_interleave(torch.arange(start.shape[0],
+                                               device=start.device), n_pieces)
+    first = torch.repeat_interleave(torch.cumsum(n_pieces, 0) - n_pieces,
+                                    n_pieces)
+    i = (torch.arange(rng.shape[0], device=start.device) - first) * piece
+    a = start[rng] + i
+    b = start[rng] + torch.minimum(length[rng], i + piece)
+    return int(((b - 1) // SECTOR_WORDS - a // SECTOR_WORDS + 1).sum())
+
+
+def list_loads(ft: FtLists, u: torch.Tensor, w: torch.Tensor,
+               lanes: int = I_LANES, ids: int = I_IDS) -> dict:
+    """What kernel I loads for one call, a task to each group of `lanes`
+    lanes and `ids` ids a lane a round, counting only tasks whose two lists
+    are non-empty: its runs of equal u; the shorter list's ids, read once a
+    task (`short_ids`), in rounds of lanes * ids slots (`rounds`); the
+    loads of the searches in the longer list, at most ceil(log2 longer) +
+    2 a slot (the halvings, the compare at the slot found and the hit test
+    at the slot after it), padding slots included (`search_loads`); the
+    32-byte sector requests of the shorter lists' reads (`lanes` ids a
+    load) and of the longer lists, each sector a task spans once, as L1
+    keeps the list between a task's searches (`sectors`); the dependent
+    loads a task's lanes wait on in turn (`chain`: at most
+    ceil(log2 longer) + 2 a round), against the first design's
+    (`first_chain`: 8 lanes a task, each its ceil(shorter / 8) ids one
+    after another, ceil(log2(longer + 1)) loads an id)."""
+    sa, la = ft.lengths(u)
+    sb, lb = ft.lengths(w)
+    idx = torch.nonzero((la > 0) & (lb > 0)).flatten()
+    sa, la, sb, lb = sa[idx], la[idx], sb[idx], lb[idx]
+    swap = la > lb                       # u's list is the shorter on a tie
+    s_short = torch.where(swap, sb, sa)
+    s_long = torch.where(swap, sa, sb)
+    short, long_ = torch.minimum(la, lb), torch.maximum(la, lb)
+    rounds = (short + lanes * ids - 1) // (lanes * ids)
+    depth = torch.ceil(torch.log2(long_.double())).long() + 2
+    span = (s_long + long_ - 1) // SECTOR_WORDS - s_long // SECTOR_WORDS + 1
+    first = torch.ceil(torch.log2((long_ + 1).double())).long()
+    return dict(tasks=u.shape[0], runs=int(_starts(u).sum()),
+                short_ids=int(short.sum()), rounds=int(rounds.sum()),
+                search_loads=int((rounds * lanes * ids * depth).sum()),
+                sectors=_sectors(s_short, short, lanes) + int(span.sum()),
+                chain=int((rounds * depth).sum()),
+                first_chain=int((((short + 7) // 8) * first).sum()))
+
+
 def tri_lists(ft: FtLists, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel I: int32 [n] |FT(u[t]) ∩ FT(w[t])|; see the module
     docstring."""
@@ -311,7 +366,7 @@ def tri_lists(ft: FtLists, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check_launch(_build.entry("gm_tri_lists")(
         ft.rowptr.data_ptr(), ft.colidx.data_ptr(), ft.ftw.data_ptr(),
         ft.n_vertices, u.data_ptr(), w.data_ptr(), n, out.data_ptr(),
-        n_blocks(n * TASK_LANES), _build.stream(u.device)), "tri_lists")
+        n_blocks(n * I_LANES), _build.stream(u.device)), "tri_lists")
     tri_lists.launches += 1
     return out
 

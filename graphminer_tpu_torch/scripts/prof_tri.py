@@ -1,16 +1,18 @@
-"""Kernels S and P (ops/cuda_tri.py) against variants, in turns.
+"""Kernels S, P and I (ops/cuda_tri.py) against variants, in turns.
 
 Builds the tasks that ops/tri_support.py::tri_support gives S (every DAG
-edge) and P (sub-core u, core v) on rmat(--scale, 16, seed 7) at core 4096
-and times, in one process on the card, S and P as built beside their
-bounds (utils/profiling.py::tri_bitmap_bytes, ::tri_probe_bytes) and what
-they load (cuda_tri.bitmap_loads, ::probe_loads). --first-design DIR also
-compiles DIR/graphminer_tpu_torch/csrc/tri_support.cu (an older
+edge), P (sub-core u, core v) and I (both ends sub-core) on rmat(--scale,
+16, seed 7) at core 4096 and times, in one process on the card, S, P and
+I as built beside their bounds (utils/profiling.py::tri_bitmap_bytes,
+::tri_probe_bytes, ::tri_lists_bytes) and what they load
+(cuda_tri.bitmap_loads, ::probe_loads, ::list_loads). --first-design DIR
+also compiles DIR/graphminer_tpu_torch/csrc/tri_support.cu (an older
 checkout's source), and --variant NAME=FILE (repeatable) a copy of
-csrc/tri_support.cu with another design or constant (S_WINDOW, P_STEP),
-each into a library of its own under graph_cache/, and times their S and
-P in the same turns (a b c, c b a). Their entry points must take the
-built ones' arguments. Every result must equal the plain version's.
+csrc/tri_support.cu with another design or constant (S_WINDOW, P_STEP,
+I_LANES, I_IDS), each into a library of its own under graph_cache/, and
+times their S, P and I in the same turns (a b c, c b a). Their entry
+points must take the built ones' arguments. Every result must equal the
+plain version's.
 Prints one JSON line: for each variant the event-timed ms of each turn
 (CUDA events, median of --reps calls, the host's dispatch included), the
 device ms alone (torch.profiler over 200 calls), and the card's name and
@@ -38,8 +40,8 @@ from graphminer_tpu_torch.ops._tensors import n_blocks
 from graphminer_tpu_torch.utils import profiling as pf
 
 def tasks(g, core: int = ts.CORE, device="cuda"):
-    """(S's arguments, P's arguments) as tri_support makes them, on
-    `device`."""
+    """(S's arguments, P's arguments, I's arguments) as tri_support makes
+    them, on `device`."""
     rg = g.relabel_by_degree(descending=False)
     _, cs, words = ts.core_split(rg, core)
     t = lambda a: torch.from_numpy(a).to(device)
@@ -49,14 +51,16 @@ def tasks(g, core: int = ts.CORE, device="cuda"):
                                    device)
     src, dst = (a.astype(np.int32) for a in rg.orientation().edge_list())
     sc = (src < cs) & (dst >= cs)
-    return (table, t(src), t(dst)), (ft, table, t(src[sc]), t(dst[sc] - cs))
+    ss = (src < cs) & (dst < cs)
+    return ((table, t(src), t(dst)), (ft, table, t(src[sc]), t(dst[sc] - cs)),
+            (ft, t(src[ss]), t(dst[ss])))
 
 
 def compiled(src: str, tag: str):
-    """(S, P) callables of the CUDA source `src` (which may include the
+    """(S, P, I) callables of the CUDA source `src` (which may include the
     package's common.cuh), compiled into graph_cache/libtri_<tag>.so and
     launched as the wrappers launch theirs (S over S_WINDOW tasks a warp's
-    worth of blocks, P a thread a task)."""
+    worth of blocks, P a thread a task, I I_LANES threads a task)."""
     out_dir = os.path.join(os.path.dirname(_build._PKG), "graph_cache")
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, f"libtri_{tag}.so")
@@ -64,7 +68,7 @@ def compiled(src: str, tag: str):
                     "-shared", "-o", lib_path, src], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(lib_path)
-    for name in ("gm_tri_bitmap", "gm_tri_probe"):
+    for name in ("gm_tri_bitmap", "gm_tri_probe", "gm_tri_lists"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
 
     def s(tab, a, b):
@@ -87,7 +91,27 @@ def compiled(src: str, tag: str):
             _build.stream(u.device)), f"{tag} P")
         return out
 
-    return s, p
+    def i(ft, u, w):
+        out = torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
+        n = u.shape[0]
+        _build.check_launch(lib.gm_tri_lists(
+            ft.rowptr.data_ptr(), ft.colidx.data_ptr(), ft.ftw.data_ptr(),
+            ft.n_vertices, u.data_ptr(), w.data_ptr(), n, out.data_ptr(),
+            n_blocks(n * cuda_tri.I_LANES), _build.stream(u.device)),
+            f"{tag} I")
+        return out
+
+    return s, p, i
+
+
+#: per kernel: its wrapper, plain version, bytes and loads counters
+KERNELS = {
+    "tri_bitmap": (cuda_tri.tri_bitmap, cuda_tri.tri_bitmap_plain,
+                   pf.tri_bitmap_bytes, cuda_tri.bitmap_loads),
+    "tri_probe": (cuda_tri.tri_probe, cuda_tri.tri_probe_plain,
+                  pf.tri_probe_bytes, cuda_tri.probe_loads),
+    "tri_lists": (cuda_tri.tri_lists, cuda_tri.tri_lists_plain,
+                  pf.tri_lists_bytes, cuda_tri.list_loads)}
 
 
 def main(argv=None) -> dict:
@@ -100,27 +124,24 @@ def main(argv=None) -> dict:
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("prof_tri needs a CUDA card")
-    s_args, p_args = tasks(rmat(a.scale, 16, seed=7))
-    kernels = {"tri_bitmap": {"built": lambda: cuda_tri.tri_bitmap(*s_args)},
-               "tri_probe": {"built": lambda: cuda_tri.tri_probe(*p_args)}}
+    args = dict(zip(KERNELS, tasks(rmat(a.scale, 16, seed=7))))
+    kernels = {k: {"built": lambda k=k: KERNELS[k][0](*args[k])}
+               for k in KERNELS}
     sources = [("first design", os.path.join(
         a.first_design, "graphminer_tpu_torch", "csrc", "tri_support.cu"))
         ] if a.first_design else []
     sources += [tuple(v.split("=", 1)) for v in a.variant]
     for i, (name, path) in enumerate(sources):
-        fs, fp = compiled(path, f"variant{i}")
-        kernels["tri_bitmap"][name] = lambda fs=fs: fs(*s_args)
-        kernels["tri_probe"][name] = lambda fp=fp: fp(*p_args)
+        for k, fn in zip(KERNELS, compiled(path, f"variant{i}")):
+            kernels[k][name] = lambda fn=fn, k=k: fn(*args[k])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     out = {"card": card, "scale": a.scale, "kernels": {}}
     for name, fns in kernels.items():
-        args = s_args if name == "tri_bitmap" else p_args
-        plain = (cuda_tri.tri_bitmap_plain if name == "tri_bitmap" else
-                 cuda_tri.tri_probe_plain)(*args)
-        nbytes = (pf.tri_bitmap_bytes if name == "tri_bitmap" else
-                  pf.tri_probe_bytes)(*args)
+        _, plain_fn, bytes_fn, loads_fn = KERNELS[name]
+        plain = plain_fn(*args[name])
+        nbytes = bytes_fn(*args[name])
         rows = {k: {"event_ms": []} for k in fns}
         order = list(fns) + list(reversed(fns))
         for k in order:                       # turns: a b c, c b a
@@ -130,13 +151,12 @@ def main(argv=None) -> dict:
             rows[k]["event_ms"].append(ms)
         for k, fn in fns.items():
             rows[k]["device_ms"] = pf.device_ms(fn)[0]
-        rows["built"]["loads"] = (cuda_tri.bitmap_loads if name ==
-                                  "tri_bitmap" else cuda_tri.probe_loads)(*args)
+        rows["built"]["loads"] = loads_fn(*args[name])
         out["kernels"][name] = {
-            "tasks": args[-1].numel(), "bytes": nbytes,
+            "tasks": args[name][-1].numel(), "bytes": nbytes,
             "bound_ms": pf.bound_ms(nbytes)[0], "variants": rows}
     out["kernels"]["tri_probe"]["once_a_run"] = cuda_tri.probe_loads(
-        *p_args, window=None)
+        *args["tri_probe"], window=None)
     print(json.dumps(out))
     return out
 

@@ -959,12 +959,22 @@ def test_tri_probe_unaligned_table(dev):
     assert torch.equal(got, want) and want.any()
 
 
-def test_tri_lists(dev):
-    rng, _, ft = sgl_tables(dev, 5)
+@pytest.mark.parametrize("max_deg", [150, 1200])
+@pytest.mark.parametrize("order", ["random", "runs", "runs_of_1"])
+def test_tri_lists(dev, order, max_deg):
+    """Random tasks, sorted runs longer than a window and runs of 1, with
+    ids outside [0, V) inside the runs; lists up to 152 ids, or up to 1202
+    (searches of 11 steps, shorter lists of many rounds)."""
+    rng, _, ft = sgl_tables(dev, 5 + max_deg, max_deg=max_deg)
     v = ft.n_vertices
-    u, w = sgl_ids(rng, dev, -2, v + 2, 40000), \
-        sgl_ids(rng, dev, 0, v, 40000)
+    u, w = sgl_order(rng, dev, order, -2, v + 2, v, 40000,
+                     rng.integers(-2, v + 2, 40000))
+    if w is None:
+        w = sgl_ids(rng, dev, 0, v, 40000)
+    assert max_deg < 1000 or int(ft.lengths(u)[1].max()) > 1000
+    n0 = cuda_tri.tri_lists.launches
     got = cuda_tri.tri_lists(ft, u, w)
+    assert cuda_tri.tri_lists.launches == n0 + 1
     assert torch.equal(got, cuda_tri.tri_lists_plain(ft, u, w))
     assert got.any()
 

@@ -126,7 +126,7 @@ def test_prof_tri_tasks_on_cpu():
     from graphminer_tpu_torch.io.synth import rmat
     from graphminer_tpu_torch.ops import cuda_tri, tri_support
     g = rmat(10, 16, seed=7)
-    s, p = prof_tri.tasks(g, core=256, device="cpu")
+    s, p, _ = prof_tri.tasks(g, core=256, device="cpu")
     want = tri_support.tri_support(g, core=256, device="cpu")
     assert s[1].numel() == want.src.size and 0 < p[2].numel() < s[1].numel()
     assert np.array_equal(s[1].numpy(), want.src)
@@ -137,6 +137,35 @@ def test_prof_tri_tasks_on_cpu():
     once = cuda_tri.probe_loads(*p, window=None)
     assert once["sectors"] <= pl["sectors"] <= pl["probes"]
     assert once["lists"] <= pl["lists"] <= pl["runs"] + pl["windows"]
+
+
+def test_prof_tri_lists_on_cpu():
+    """prof_tri's I path at scale 10: its tasks are tri_support's ss tasks,
+    whose support is S's core count plus I's; the kernel table names I with
+    its plain version, bytes and load counter, and what I loads adds up
+    (each shorter list in rounds of I_LANES * I_IDS slots, less than a
+    round of padding a task)."""
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import cuda_tri, tri_support
+    g = rmat(10, 16, seed=7)
+    s, _, i = prof_tri.tasks(g, core=256, device="cpu")
+    want = tri_support.tri_support(g, core=256, device="cpu")
+    key = lambda a, b: a.long() * want.n_vertices + b.long()
+    mask = torch.isin(key(s[1], s[2]), key(i[1], i[2]))
+    assert int(mask.sum()) == i[1].numel() > 0
+    got = cuda_tri.tri_bitmap_plain(*s)[mask] + cuda_tri.tri_lists_plain(*i)
+    assert torch.equal(got.long(), want.tri[mask]) and got.any()
+    fn, plain, nbytes, loads = prof_tri.KERNELS["tri_lists"]
+    assert (fn, plain, loads) == (cuda_tri.tri_lists,
+                                  cuda_tri.tri_lists_plain,
+                                  cuda_tri.list_loads)
+    assert nbytes(*i) >= 12 * i[1].numel()
+    ll = loads(*i)
+    slots = cuda_tri.I_LANES * cuda_tri.I_IDS
+    assert ll["tasks"] == i[1].numel() and ll["first_chain"] > 0
+    assert ll["short_ids"] <= slots * ll["rounds"] < \
+        ll["short_ids"] + slots * ll["tasks"]
+    assert 0 < ll["chain"] < ll["search_loads"] and ll["sectors"] > 0
 
 
 def test_prof_rectangle_on_cpu(capsys):

@@ -381,3 +381,154 @@ def test_tri_probe_vl_outside_and_ids_outside():
     assert np.array_equal(out, want)
     bad = (vl < 0) | (vl >= 32 * w) | (u < 0) | (u >= v)
     assert bad.any() and not want[bad].any() and want[~bad].any()
+
+
+# --- I on the task orders it meets ----------------------------------------
+#
+# Kernel I gives each task a group of I_LANES lanes, which take the shorter
+# list's ids I_IDS a lane at a time and search them in lockstep in the
+# longer list. The cases give runs longer than a warp's tasks, runs of 1,
+# no order, runs across warp edges, ids outside [0, V) inside runs and
+# inside rows, empty lists and lists longer than 32 and than 512.
+
+#: JAX's list width here: one compile for every order
+I_WIDTH = 128
+
+
+def model_lists(rowptr, colidx, ftw, u, w, lanes, ids):
+    """Kernel I's walk (csrc/tri_support.cu::tri_lists_kernel) in numpy: a
+    task with two non-empty lists takes its shorter one (u's on a tie) in
+    rounds of lanes * ids slots, slot i0 + l + lanes * k for lane l and
+    k < ids; each slot's id is searched in the longer list by the kernel's
+    branchless lower bound (ceil(log2 m) halvings to the last slot below
+    it, then a compare there and the hit test at the slot after: at most 2
+    loads more) and counts where it is in [0, V) and found. Counts, as
+    list_loads names them, the shorter lists' ids, the rounds, the search
+    loads (at most, padding slots included), the sectors and the dependent
+    loads.
+    Returns (out, counts)."""
+    v = ftw.size
+    out = np.zeros(u.size, np.int32)
+    got = dict(short_ids=0, rounds=0, search_loads=0, sectors=0, chain=0)
+
+    def ft(x):
+        if not 0 <= x < v:
+            return 0, 0
+        a = int(rowptr[x])
+        return a, max(0, min(int(ftw[x]), int(rowptr[x + 1]) - a))
+
+    def search(row, x):                    # (found, loads at most)
+        b, m, loads = 0, row.size, 0
+        while m > 1:
+            half = m >> 1
+            b = b + half if row[b + half] < x else b
+            m -= half
+            loads += 1
+        lb = b + (row[b] < x)
+        return 0 <= x < v and lb < row.size and row[lb] == x, loads + 2
+
+    for t in range(u.size):
+        (pa, la), (pb, lb) = ft(int(u[t])), ft(int(w[t]))
+        if la == 0 or lb == 0:
+            continue
+        if la > lb:
+            pa, la, pb, lb = pb, lb, pa, la
+        short = colidx[pa:pa + la].astype(np.int64)
+        row = colidx[pb:pb + lb].astype(np.int64)
+        got["short_ids"] += la
+        got["sectors"] += sum((pa + min(la, i + lanes) - 1) // 8 -
+                              (pa + i) // 8 + 1 for i in range(0, la, lanes))
+        got["sectors"] += (pb + lb - 1) // 8 - pb // 8 + 1
+        for i0 in range(0, la, lanes * ids):
+            got["rounds"] += 1
+            for slot in range(i0, i0 + lanes * ids):
+                found, loads = search(row, short[slot] if slot < la else -1)
+                out[t] += found
+                got["search_loads"] += loads
+            got["chain"] += loads
+    return out, got
+
+
+def brute_lists(rowptr, colidx, ftw, u, w):
+    """|FT(u) ∩ FT(w)| over the ids in [0, V), a task at a time."""
+    v = ftw.size
+
+    def ft(x):
+        if not 0 <= x < v:
+            return set()
+        a = int(rowptr[x])
+        ln = max(0, min(int(ftw[x]), int(rowptr[x + 1]) - a))
+        return {int(y) for y in colidx[a:a + ln] if 0 <= y < v}
+
+    return np.array([len(ft(int(a)) & ft(int(b))) for a, b in zip(u, w)],
+                    np.int32)
+
+
+def check_model_lists(ft, rowptr, colidx, ftw, u, w, want, shapes):
+    """The model at each (lanes, ids) of `shapes` against `want`, and
+    list_loads against its counts."""
+    for lanes, ids in shapes:
+        out, counts = model_lists(rowptr, colidx, ftw, u, w, lanes, ids)
+        assert np.array_equal(out, want), (lanes, ids)
+        est = cuda_tri.list_loads(ft, t(u), t(w), lanes, ids)
+        assert {k: est[k] for k in counts} == counts, (lanes, ids)
+        assert est["runs"] == 1 + int((u[1:] != u[:-1]).sum())
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_tri_lists_orders(order):
+    """I's plain version against JAX's _list_intersect on each task order
+    (lists up to 120 ids), the numpy model of the kernel's groups against
+    both at the built shape and at 8 lanes of 4 ids, and list_loads against
+    what the model counts."""
+    rng = np.random.default_rng(9000 + ORDERS.index(order))
+    v = 300
+    rowptr, colidx, ftw = random_csr(rng, v, 120)
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    u = ordered_ids(rng, order, v)
+    w = within_runs(rng, u, rng.integers(-3, v + 3, u.size)
+                    .astype(np.int32), order)
+    want = np.asarray(jts._list_intersect(
+        jnp.asarray(jax_lists(rowptr, colidx, ftw, u, I_WIDTH)),
+        jnp.asarray(jax_lists(rowptr, colidx, ftw, w, I_WIDTH)),
+        wa=I_WIDTH, wb=I_WIDTH, chunk=256))[:u.size]
+    got = cuda_tri.tri_lists_plain(ft, t(u), t(w))
+    assert np.array_equal(got.numpy(), want) and want.any()
+    check_model_lists(ft, rowptr, colidx, ftw, u, w, want,
+                      ((cuda_tri.I_LANES, cuda_tri.I_IDS), (8, 4)))
+
+
+def test_tri_lists_long_lists_and_ids_outside():
+    """Lists longer than 512 ids (up to 800) in sorted runs, rows that hold
+    ids outside [0, V) (negative first, V and above last, SENTINEL) and
+    empty lists: the plain version and the model against a brute-force
+    count over the ids in [0, V), and list_loads against the model."""
+    rng = np.random.default_rng(77)
+    v = 1500
+    deg = rng.integers(0, 120, v)
+    deg[rng.choice(v, 40, replace=False)] = rng.integers(520, 800, 40)
+    rows = []
+    for d in deg:
+        r = np.sort(rng.choice(v + 8, int(d), replace=False) - 4)
+        if rng.random() < 0.1:
+            r = np.append(r, SENTINEL)
+        rows.append(r)
+    rowptr = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    colidx = np.concatenate(rows).astype(np.int32)
+    ftw = rng.integers(0, deg + 3).astype(np.int32)
+    ftw[::11] = 0                                  # empty lists
+    long_u = np.nonzero(np.minimum(ftw, deg) > 512)[0]
+    assert long_u.size > 5
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    lens = rng.integers(1, 60, 20)
+    u = np.repeat(np.sort(rng.choice(long_u, 20)), lens)[:600]
+    u = np.concatenate([u, ordered_ids(rng, "window_edges", v, 300)])
+    w = np.concatenate([rng.choice(long_u, u.size // 3),
+                        rng.integers(-2, v + 2, u.size - u.size // 3)])
+    w = within_runs(rng, u, rng.permutation(w).astype(np.int32), "long")
+    u = u.astype(np.int32)
+    want = brute_lists(rowptr, colidx, ftw, u, w)
+    got = cuda_tri.tri_lists_plain(ft, t(u), t(w))
+    assert np.array_equal(got.numpy(), want) and want.max() > 100
+    check_model_lists(ft, rowptr, colidx, ftw, u, w, want,
+                      ((cuda_tri.I_LANES, cuda_tri.I_IDS),))
