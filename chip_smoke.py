@@ -9,15 +9,16 @@ hub-core and hybrid engines and the generic set-operation path, the
 three probe scripts, the generic clique and SgL counts, the fast 4- and
 5-clique engine on the same graph (2,280,263,816 and 55,374,832,965),
 the large-clique engine (k = 6 at rmat14 and rmat16, k = 7 and 8 at
-rmat12) and the fast diamond and rectangle engines (45,873,513,836
-diamonds and 51,349,430,411 4-cycles at rmat18) — and fails (non-zero
-exit, no result line) when any phase fails:
+rmat12), the fast diamond and rectangle engines (45,873,513,836
+diamonds and 51,349,430,411 4-cycles at rmat18) and the fast house engine
+(71,686,049,455,877 houses at rmat18) with the motif and sc verbs — and
+fails (non-zero exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
   2. builds the CUDA kernels from graphminer_tpu_torch/csrc with nvcc, then
      launches kernel R through the port's launch_check script;
   3. holds kernels A, B, C, D, E, m3, m3b, R, X, L, G and Q (its count
-     and its emit; S, P, I and W's modes in phase 15) against their
+     and its emit; S, P, I and W's modes in phase 15, H in 16) against their
      plain PyTorch versions on the card, exactly: random inputs over every
      width class, A, B, C and E also as one grouped launch over random
      multi-bucket sets, X in both layouts, plain and gathered (depth 0-4),
@@ -52,7 +53,10 @@ exit, no result line) when any phase fails:
      (torch.profiler) of D at each of prof_breakdown's shapes, of m3 and
      m3b, and of R and torch.mul,
      failing unless a D call and a window_count call each run one kernel
-     and no other device op; and R's host time a call, split into the
+     and no other device op (a device time that torch.profiler recorded
+     no event for in three readings is "not measured", null in the
+     kernels line, and only the launch counts are held); and R's host
+     time a call, split into the
      parts of its wrapper's path (host clock over 10,000 calls);
   8. runs the hybrid engine (ring phase C + sub-core stream) on rmat18:
      count, one launch each of B and A and none of C or E, the coverage
@@ -111,13 +115,28 @@ exit, no result line) when any phase fails:
      with a sub neighbour, equal to the pairs mode); and S, P, I and W's
      three launches timed at rmat18 beside their bounds, level 0 by the
      pairs mode in turns with the yardstick, and the yardstick's Gram and
-     case B beside their int8 operation bounds.
+     case B beside their int8 operation bounds;
+ 16. runs the fast house engine and the motif and sc verbs: holds kernel H
+     against its plain version on random inputs (4-128 words, bit 31, ids
+     outside [0, V), empty lists, runs of 1, sorted runs of up to 30,000
+     tasks over lists of up to 1,500 ids, no order; no launch without a
+     task) and on both calls of the rmat14 and rmat18 counts;
+     house_count_fast at rmat14 and rmat18 against bench.py:86-87 (two H
+     launches a count); the rmat18 count's t3ss host time and the count
+     under torch.profiler; H's calls timed at rmat18 beside their bounds
+     and plain versions, and both in turns with the JAX form they replaced
+     (X + torch._int_mm + W's write mode); then the CLI on the card: sgl
+     house --fast == generic at rmat12, motif 3 and 4 --fast at rmat18
+     against their goldens (B and C; S, P, I, G, L and W's pairs mode once
+     each), motif 4 --fast == generic at rmat12, sc hourglass and diamond
+     at rmat12 against tri_support's formulas, and motif 5 at rmat10 (its
+     5clique against clique 5).
 
-Each path of phases 2, 4-6, 8 and 12-15 runs with every launch count set to
+Each path of phases 2, 4-6, 8 and 12-16 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
-"device": {...}}. The rmat12, rmat14, rmat18 and rmat20 graphs are written
-under the git-ignored graph_cache/ directory.
+"device": {...}}. The rmat10, rmat12, rmat14, rmat18 and rmat20 graphs are
+written under the git-ignored graph_cache/ directory.
 """
 import json
 import os
@@ -215,6 +234,10 @@ KERNELS = {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/bit_colsum.cu",
         "replaces": "graphminer_tpu/ops/rectangle.py:119"},
+    "house_t3": {
+        "route": "cuda",
+        "source": "graphminer_tpu_torch/csrc/house_t3.cu",
+        "replaces": "graphminer_tpu/ops/house.py:65"},
 }
 #: rmat(18, 16, seed=7) k-cliques (bench.py:64-68)
 GOLDEN_CK = {4: 2_280_263_816, 5: 55_374_832_965}
@@ -235,6 +258,11 @@ WINDOW_ROWS = {"window_count_m3": 1, "window_count_m3b": 8}
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def shown(ms, digits=4):
+    """A device time in ms as text, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def say(msg):
@@ -279,8 +307,8 @@ def wrappers():
     from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
                                           cuda_cliquek, cuda_colsum,
                                           cuda_expand, cuda_gram,
-                                          cuda_hubcore, cuda_ring,
-                                          cuda_stream, cuda_tri,
+                                          cuda_house, cuda_hubcore,
+                                          cuda_ring, cuda_stream, cuda_tri,
                                           cuda_window, fetch)
     return {"stream_bucket_count": cuda_stream.stream_bucket_count,
             "ring_phase_c": cuda_ring.ring_phase_c,
@@ -299,7 +327,8 @@ def wrappers():
             "tri_lists": cuda_tri.tri_lists,
             "bit_colsum": cuda_colsum.bit_colsum,
             "colsum_pairs": cuda_colsum.colsum_pairs,
-            "colsum_finish": cuda_colsum.colsum_finish}
+            "colsum_finish": cuda_colsum.colsum_finish,
+            "house_t3": cuda_house.house_t3}
 
 
 def reset_counts():
@@ -1258,8 +1287,19 @@ def device_ms(fn, kernel=None, calls=200):
     wrappers' launch counts rose by exactly one for each fn() call, so a
     call that launched nothing fails. The profiler can miss events at the
     edge of its window: a reading with fewer than 0.9 kernel events a call
-    is taken again, DEVICE_READS readings in all."""
-    from graphminer_tpu_torch.utils.profiling import device_ms as alone
+    is taken again, DEVICE_READS readings in all. When CUPTI hands the
+    profiler no device event at all (utils/profiling.py::device_ms reads
+    again before it gives up), the device time is not measured: None, and
+    only the launch counts are held."""
+    from graphminer_tpu_torch.utils.profiling import device_ms as profiled
+
+    def alone(f, n):
+        try:
+            return profiled(f, n)
+        except RuntimeError as e:
+            say(f"device time not measured: {e}")
+            return None, None
+
     if kernel is None:
         return alone(fn, calls)[0]
     n_calls = [0]
@@ -1276,6 +1316,8 @@ def device_ms(fn, kernel=None, calls=200):
         check(launched == n_calls[0],
               f"{kernel}: {launched} launches counted over {n_calls[0]} "
               "calls")
+        if ops is None:
+            return None
         kernels = {k: v for k, v in ops.items() if "emset" not in k}
         memsets = sum(v for k, v in ops.items() if "emset" in k)
         rate = next(iter(kernels.values()), 0.0)
@@ -1502,16 +1544,20 @@ def timing_slice(hub_eng, pb, pw):
                   f"embedding_bag != fetch_rows_sum at w={w} n={n}")
             b_ms, _ = prof_breakdown.fetch_bound(idx, w)
             for key, v in (("ms", k), ("plain_ms", p), ("bound_ms", b_ms),
-                           ("library_ms", lib_ms), ("device_ms", d_ms)):
+                           ("library_ms", lib_ms)):
                 tot[key] += v
+            tot["device_ms"] = None if None in (d_ms, tot["device_ms"]) \
+                else tot["device_ms"] + d_ms
+            rate = "" if d_ms is None else \
+                f", {n * w * 4 / d_ms / 1e6:.1f} GB/s"
             say(f"[{CARD}] fetch_rows_sum w={w} n={n}: kernel {k:.4f} ms "
-                f"(device alone {d_ms:.4f} ms, {n * w * 4 / d_ms / 1e6:.1f} "
-                f"GB/s on {n * w * 4} gathered bytes), plain {p:.4f} ms, "
+                f"(device alone {shown(d_ms)}{rate} on {n * w * 4} "
+                f"gathered bytes), plain {p:.4f} ms, "
                 f"embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes)")
             del t64
     res["fetch_rows_sum"] = dict(tot, bound_by="bytes")
     say(f"[{CARD}] fetch_rows_sum, 8 shapes: kernel {tot['ms']:.4f} ms, "
-        f"device alone {tot['device_ms']:.4f} ms, bound "
+        f"device alone {shown(tot['device_ms'])}, bound "
         f"{tot['bound_ms']:.4f} ms; one kernel and no other device op a "
         f"call")
 
@@ -1532,7 +1578,7 @@ def timing_slice(hub_eng, pb, pw):
         res[name] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None, device_ms=d_ms)
         say(f"[{CARD}] {name} at prof_window defaults: kernel {k:.4f} ms "
-            f"(device alone {d_ms:.4f} ms), plain {p:.3f} ms, bound "
+            f"(device alone {shown(d_ms)}), plain {p:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {pw['bytes']} bytes)")
     del srcs
 
@@ -1556,7 +1602,7 @@ def timing_slice(hub_eng, pb, pw):
     say(f"[{CARD}] times_two [8, 128]: kernel {k:.4f} ms, plain {p:.4f} "
         f"ms, torch.mul {lib_ms:.4f} ms ({k / lib_ms:.3f}x), bound "
         f"{b_ms:.6f} ms ({b_by}); on the device alone (torch.profiler): "
-        f"kernel {dev_ms:.5f} ms, torch.mul {lib_dev_ms:.5f} ms")
+        f"kernel {shown(dev_ms, 5)}, torch.mul {shown(lib_dev_ms, 5)}")
     return res
 
 
@@ -2277,11 +2323,13 @@ def profiled_count(label, fn, want):
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
     torch.cuda.reset_peak_memory_stats()
     check(fn() == want, f"{label}: a second count")
-    say(f"[{CARD}] {label} (profiled): host {host:.3f} s, device "
-        f"{us / 1e3:.3f} ms in {len(dev)} events, busy "
-        f"{us / 1e6 / host:.4f}; top: " +
-        ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top) +
-        f"; max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    device = (f"device {us / 1e3:.3f} ms in {len(dev)} events, busy "
+              f"{us / 1e6 / host:.4f}; top: " +
+              ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top)) if dev \
+        else "device time and busy share not measured (torch.profiler " \
+        "recorded no device event)"
+    say(f"[{CARD}] {label} (profiled): host {host:.3f} s, {device}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
 
 
 def pairs_random():
@@ -2628,6 +2676,281 @@ def run_sgl(g18):
     return res, launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: the fast house engine, motif and sc
+# --------------------------------------------------------------------------
+
+#: rmat(scale, 16, seed=7) houses (bench.py:86-87)
+GOLDEN_HOUSE = {14: 294_814_195_705, 18: 71_686_049_455_877}
+#: rmat(18, 16, seed=7) induced 3- and 4-motifs: wedges Σ C(d, 2) − 3 T;
+#: diamonds 45,873,513,836 − 6 K4; 4-cycles 51,349,430,411 − D − 3 K4
+GOLDEN_MOTIF18 = {"3": {"wedge": 4_499_982_120, "triangle": GOLDEN[18]},
+                  "4": {"4clique": GOLDEN_CK[4],
+                        "diamond": 32_191_930_940,
+                        "4cycle": 12_316_708_023}}
+#: the CLI's kernel launch keys of each phase-16 verb's fast engines
+MOTIF_KERNELS = {"3": ("ring_phase_c", "ring_tail_pairs"),
+                 "4": ("tri_bitmap", "tri_probe", "tri_lists", "bit_gram",
+                       "lo_popcount", "colsum_pairs")}
+
+
+def h_random():
+    """H against its plain version on random inputs: 4-128 words with bit
+    31 in every row, lists with ids outside [0, V) and SENTINEL, empty
+    lists, runs of 1, sorted runs of 150-300 and of up to 30,000 tasks over
+    lists of up to 1,500 ids, no order; a call with no task launches
+    nothing, and a table whose words are no multiple of 4 is refused."""
+    from graphminer_tpu_torch.ops import cuda_house as ch
+    from graphminer_tpu_torch.ops.cuda_tri import FtLists
+    rng = np.random.default_rng(16)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a, dtype=np.int32)).cuda()
+    v = 20000
+    for w, order, n in ((4, "runs", 200_000), (8, "unsorted", 200_000),
+                        (12, "runs of 1", 100_000), (40, "runs", 200_000),
+                        (128, "runs", 400_000), (128, "long runs", 300_000),
+                        (128, "unsorted", 200_000)):
+        tab = _words(rng, (v, w)) | np.int32(-2**31)
+        deg = rng.integers(0, 161, v)
+        deg[rng.choice(v, 300, replace=False)] = rng.integers(600, 1501, 300)
+        colidx = rng.integers(-2, v + 2, int(deg.sum())).astype(np.int32)
+        colidx[::97] = SENTINEL
+        ftw = rng.integers(-1, deg + 3)
+        ftw[::13] = 0
+        ft = FtLists.from_csr(np.concatenate([[0], np.cumsum(deg)]), colidx,
+                              ftw, "cuda")
+        if order == "unsorted":
+            a = rng.integers(-2, v + 2, n)
+        elif order == "runs of 1":
+            a = np.resize(np.arange(-2, v + 2), n)
+        else:
+            lens = (rng.integers(150, 301, n // 150 + 1) if order == "runs"
+                    else rng.integers(5000, 30001, n // 5000 + 1))
+            a = np.repeat(np.sort(rng.integers(-2, v + 2, lens.size)),
+                          lens)[:n]
+        args = (ft, t(tab), t(a), t(rng.integers(-2, v + 2, n)))
+        items = ch.plan_house(ft, args[2])
+        compare("house_t3", ch.house_t3(*args), ch.house_t3_plain(*args),
+                f"random, {w} words, {order}, {n} tasks, {items.shape[0]} "
+                f"items")
+    n0 = ch.house_t3.launches
+    e = t(np.zeros(0))
+    check(ch.house_t3(ft, t(tab), e, e).numel() == 0 and
+          ch.house_t3.launches == n0, "house_t3: a call with no task")
+    try:
+        ch.house_t3(ft, t(tab)[:, :1].contiguous(), e, e)
+        check(False, "house_t3 took a table of 1 word")
+    except ValueError:
+        pass
+    say("house_t3 == plain on random inputs (4-128 words, runs of up to "
+        "30,000 tasks, lists of up to 1,500 ids); no launch without tasks")
+
+
+def h_calls(g):
+    """(src, dst, cs, [(H's arguments, edges)]) of the house count of g,
+    built as edge_t3 builds them, on the card."""
+    from graphminer_tpu_torch.ops.house import house_calls
+    rg = g.relabel_by_degree(descending=False)
+    return house_calls(rg, 4096, "cuda")
+
+
+def h_timing(calls):
+    """H's two calls at rmat18 timed beside their bounds and plain
+    versions (and held to them), each call's kernel alone on the device
+    (torch.profiler), then both calls in turns with the JAX form they
+    replaced (ops/slab_form.py::house_t3_slab: X + torch._int_mm + W's
+    write mode, the library row), which is timed once a turn (~10 s a
+    call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from graphminer_tpu_torch.ops import cuda_house as ch
+    from graphminer_tpu_torch.ops.cuda_tri import _starts
+    from graphminer_tpu_torch.ops.slab_form import house_t3_slab
+    from graphminer_tpu_torch.utils import profiling as pf
+    src, dst, cs, parts = calls
+    res = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0)
+    for i, (args, idx) in enumerate(parts, 1):
+        k_ms, kv = time_ms(lambda: ch.house_t3(*args))
+        p_ms, pv = pf.time_ms(lambda: ch.house_t3_plain(*args), "cuda", 1)
+        compare("house_t3", kv, pv, f"rmat18 call {i}, {idx.numel()} tasks")
+        for _ in range(DEVICE_READS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    ch.house_t3(*args)
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and
+                  "house_t3_kernel" in e.name]
+            if us:
+                break
+        d_ms = sum(us) / len(us) / 1e3 if us else None
+        nbytes = pf.house_bytes(*args)
+        b = pf.bound_ms(nbytes)
+        items = ch.plan_house(args[0], args[2])
+        res["ms"] += k_ms
+        res["plain_ms"] += p_ms
+        res["bound_ms"] += b[0]
+        res["device_ms"] = None if None in (d_ms, res["device_ms"]) \
+            else res["device_ms"] + d_ms
+        res["bound_by"] = b[1]
+        say(f"[{CARD}] house_t3 rmat18 call {i} ({idx.numel()} tasks, "
+            f"{items.shape[0]} items, {int(_starts(args[2]).sum())} runs, 1 "
+            f"launch):"
+            f" kernel {k_ms:.4f} ms (the plan included; the kernel alone "
+            f"on the device {shown(d_ms)}), plain {p_ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}, {nbytes} B)")
+    table, ft = parts[-1][0][1], parts[-1][0][0]
+    s32, d32 = parts[0][0][2], parts[0][0][3]
+
+    def by_h():
+        t3 = torch.zeros(src.shape[0], dtype=torch.int64, device="cuda")
+        for args, idx in parts:
+            t3.index_add_(0, idx, ch.house_t3(*args).to(torch.int64))
+        return t3
+
+    def yard_once():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        val = house_t3_slab(table, ft, cs, s32, d32)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), val
+
+    p1, yv = yard_once()
+    k1, hv = time_ms(by_h)
+    k2, _ = time_ms(by_h)
+    p2, _ = yard_once()
+    check(torch.equal(hv, yv), "rmat18: H's calls != the JAX-form yardstick")
+    res.update(library_ms=statistics.median([p1, p2]),
+               both_calls_ms=statistics.median([k1, k2]))
+    say(f"[{CARD}] rmat18 core-mid T3 ({src.shape[0]} DAG edges): H's two "
+        f"calls {res['both_calls_ms']:.4f} ms, the JAX-form yardstick (X + "
+        f"torch._int_mm + W's write mode) {res['library_ms']:.3f} ms (in "
+        f"turns: yardstick {p1:.3f}, H {k1:.4f}, H {k2:.4f}, yardstick "
+        f"{p2:.3f})")
+    return res
+
+
+def cli_json(args, scale):
+    """`python -m graphminer_tpu_torch <args>` on rmat<scale> on CUDA with
+    --json --profile, run in this process (its main(), every launch count
+    at 0 before it, so the launches it reports are its own): its result,
+    after checking it ran on the card."""
+    import contextlib
+    import io
+    from graphminer_tpu_torch.__main__ import main as cli
+    t0 = time.perf_counter()
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli([args[0], graph_prefix(scale), *args[1:], "--json",
+                  "--profile"])
+    check(rc == 0, f"CLI {args} returned {rc}")
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(res["profile"]["device"] == "cuda",
+          f"CLI {args} ran on {res['profile']['device']}")
+    launched = {k: n for k, n in res["profile"]["kernel_launches"].items()
+                if n}
+    say(f"[{CARD}] CLI {' '.join(args)} rmat{scale}: "
+        f"{res.get('total', res.get('counts'))} run_s={res['run_s']} "
+        f"launches={launched} (wall {time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+def run_house(g18):
+    """Phase 16: kernel H against its plain version (random inputs, both
+    calls of the rmat14 and rmat18 counts), the house goldens at rmat14 and
+    rmat18 (two H launches a count), sgl house --fast == generic at rmat12,
+    the CLI's motif 3|4 --fast at rmat18 against their goldens, motif 4
+    --fast == generic and sc hourglass|diamond against tri_support's
+    formulas at rmat12, motif 5 at rmat10 against clique 5; H timed at
+    rmat18 beside its bound, plain version and the JAX form; the profiled
+    rmat18 house count and the host time of t3ss. Returns (timings,
+    {kernel: launches})."""
+    from graphminer_tpu_torch import native_bridge
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import cuda_house as ch
+    from graphminer_tpu_torch.ops import tri_support as ts
+    from graphminer_tpu_torch.ops.cliquek import cliquek_count_fast
+    from graphminer_tpu_torch.ops.house import house_count_fast
+    t_phase = time.perf_counter()
+    h_random()
+    launches = 0
+    calls = {}
+    for scale in (14, 18):
+        g = g18 if scale == 18 else rmat(14, 16, seed=7)
+        calls[scale] = h_calls(g)
+        for i, (args, idx) in enumerate(calls[scale][3], 1):
+            compare("house_t3", ch.house_t3(*args), ch.house_t3_plain(*args),
+                    f"rmat{scale} call {i}, {idx.numel()} tasks")
+        t0 = time.perf_counter()
+        got, n = run_path(f"house rmat{scale}",
+                          lambda: house_count_fast(g, device="cuda"),
+                          ["house_t3"])
+        check(n["house_t3"] == 2, f"house rmat{scale}: {n} H launches")
+        check(got == GOLDEN_HOUSE[scale],
+              f"house rmat{scale}: {got} != {GOLDEN_HOUSE[scale]}")
+        launches += 2
+        say(f"[{CARD}] houses rmat{scale}: {got} in "
+            f"{time.perf_counter() - t0:.3f} s (host clock), H launches 2")
+    rg18 = g18.relabel_by_degree(descending=False)
+    cs18 = calls[18][2]
+    t0 = time.perf_counter()
+    native_bridge.t3ss(rg18.rowptr, rg18.colidx, cs18)
+    say(f"rmat18 t3ss (native, host): {time.perf_counter() - t0:.3f} s")
+    profiled_count("house_count_fast rmat18",
+                   lambda: house_count_fast(g18, device="cuda"),
+                   GOLDEN_HOUSE[18])
+    res = h_timing(calls[18])
+    del calls
+
+    # the CLI on the card: house, motif and sc
+    for scale in (10, 12):
+        if not os.path.exists(graph_prefix(scale) + ".meta.txt"):
+            write_rmat(scale)
+    fast = cli_json(("sgl", "house", "--fast"), 12)
+    check(fast["profile"]["kernel_launches"]["house_t3"] == 1,
+          "sgl house --fast rmat12: H must launch once (no sub-core "
+          "vertex at core 4096)")
+    gen = cli_json(("sgl", "house"), 12)
+    check(fast["total"] == gen["total"] > 0,
+          f"rmat12 house: --fast {fast['total']} != generic {gen['total']}")
+    for k in ("3", "4"):
+        out = cli_json(("motif", k, "--fast"), 18)
+        for name, want in GOLDEN_MOTIF18[k].items():
+            check(out["counts"][name] == want,
+                  f"motif {k} rmat18 {name}: {out['counts'][name]} != {want}")
+        kl = out["profile"]["kernel_launches"]
+        check(all(kl[x] == 1 for x in MOTIF_KERNELS[k]),
+              f"motif {k} --fast rmat18: launches {kl}")
+    m_fast = cli_json(("motif", "4", "--fast"), 12)["counts"]
+    m_gen = cli_json(("motif", "4"), 12)["counts"]
+    check(m_fast == m_gen, f"motif 4 rmat12: --fast {m_fast} != {m_gen}")
+    g12 = rmat(12, 16, seed=7)
+    tri = ts.tri_support(g12, device="cuda")
+    d = torch.from_numpy(tri.src).cuda(), torch.from_numpy(tri.dst).cuda()
+    tv = torch.zeros(tri.n_vertices, dtype=torch.int64, device="cuda")
+    tv.index_add_(0, d[0], tri.tri).index_add_(0, d[1], tri.tri)
+    tv //= 2
+    c2 = lambda x: int((x * (x - 1) // 2).sum())
+    want = {"hourglass": c2(tv) - 2 * c2(tri.tri),
+            "diamond": c2(tri.tri) - 6 * cliquek_count_fast(g12, 4,
+                                                            device="cuda")}
+    for p, w in want.items():
+        got = cli_json(("sc", p), 12)["total"]
+        check(got == w, f"sc {p} rmat12: {got} != {w} by tri_support")
+    m5 = cli_json(("motif", "5"), 10)["counts"]
+    k5 = cli_json(("clique", "5"), 10)["total"]
+    check(m5["5clique"] == k5 > 0 and len(m5) == 21,
+          f"motif 5 rmat10: 5clique {m5['5clique']} != clique 5 {k5}")
+    torch.cuda.empty_cache()
+    say(f"phase 16 (house, motif, sc): {time.perf_counter() - t_phase:.1f} "
+        "s")
+    return {"house_t3": res}, {"house_t3": launches}
+
+
 def main():
     check_environment()
     build_kernels()
@@ -2672,6 +2995,9 @@ def main():
     sgl_res, sgl_launches = run_sgl(g)
     res.update(sgl_res)
     launches.update(sgl_launches)
+    house_res, house_launches = run_house(g)
+    res.update(house_res)
+    launches.update(house_launches)
     for part in (ck_launches, big_launches):   # G: the hub-core count's too
         for key, n in part.items():
             launches[key] = launches.get(key, 0) + n
@@ -2680,7 +3006,7 @@ def main():
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "host_us", "library_host_us",
              "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms",
-             "level0_ms")
+             "level0_ms", "both_calls_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

@@ -3,6 +3,8 @@
     python -m graphminer_tpu_torch tc <graph_prefix> [--fast]
     python -m graphminer_tpu_torch clique <graph_prefix> 5
     python -m graphminer_tpu_torch sgl <graph_prefix> diamond
+    python -m graphminer_tpu_torch motif <graph_prefix> 4 [--fast]
+    python -m graphminer_tpu_torch sc <graph_prefix> hourglass
     python -m graphminer_tpu_torch info <graph_prefix>
 
 Ported so far: `tc` (the generic set-operation path; with --fast the stream
@@ -10,22 +12,26 @@ engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
 engine; clique 3 --fast is the stream engine, clique 4|5 --fast the hi/lo
 clique engine of ops/cliquek.py, clique k >= 6 --fast the streamed
 large-clique engine of ops/cliquebig.py, sgl diamond --fast the triangle
-support engine of ops/tri_support.py and sgl rectangle --fast the 4-cycle
-engine of ops/rectangle.py) and `info`, with the --cpu,
---json, --profile, --chunk, --backend and --engine flags (their defaults
-come from GRAPHMINER_* variables through Config.from_env). --profile adds
+support engine of ops/tri_support.py, sgl rectangle --fast the 4-cycle
+engine of ops/rectangle.py and sgl house --fast the house engine of
+ops/house.py), `motif <k>` (workloads/motif.py: k = 3 and 4 by the
+formulas, over the generic path or with --fast over the fast engines; k =
+5 by the fused frontier pass and the containment inversion), `sc
+<pattern>` (workloads/count.py) and `info`, with the --cpu, --json,
+--profile, --chunk, --backend and --engine flags (their defaults come from
+GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
 L (lo_popcount), G (bit_gram), Q (quad_emit, quad_count), S
-(tri_bitmap), P (tri_probe), I (tri_lists) and W (bit_colsum, its write
-mode; colsum_pairs and colsum_finish, its pairs mode) in this process; on
-a large-clique count its phases_s also hold the host seconds of the
-count's steps (host_hi, host_lo and, at k = 6, host_hi_estimate,
-host_hi_triangles, host_hi_h2d, host_hi_offsets, host_hi_quad_gram). Without
---cpu the count runs on CUDA, and it fails when no card is visible. Every
-other verb, the fast house engine, and the --sharded and --partition flags
-are not ported yet: they exit non-zero and name ROADMAP.md, and nothing
-runs in their place.
+(tri_bitmap), P (tri_probe), I (tri_lists), W (bit_colsum, its write
+mode; colsum_pairs and colsum_finish, its pairs mode) and H (house_t3) in
+this process; on a large-clique count its phases_s also hold the host
+seconds of the count's steps (host_hi, host_lo and, at k = 6,
+host_hi_estimate, host_hi_triangles, host_hi_h2d, host_hi_offsets,
+host_hi_quad_gram). Without --cpu the count runs on CUDA, and it fails
+when no card is visible. The verbs fsm, gks and query and the --sharded
+and --partition flags are not ported yet: they exit non-zero and name
+ROADMAP.md, and nothing runs in their place.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import sys
 import time
 
 VERBS = ["tc", "clique", "sgl", "motif", "sc", "fsm", "gks", "query", "info"]
-PORTED_VERBS = ("tc", "clique", "sgl", "info")
+PORTED_VERBS = ("tc", "clique", "sgl", "motif", "sc", "info")
 
 
 def _not_ported(what: str) -> None:
@@ -66,7 +72,9 @@ def main(argv=None):
                         "clique 4|5 = hi/lo clique engine (CliqueKEngine), "
                         "clique k >= 6 = large-clique engine "
                         "(CliqueBigEngine), sgl diamond = triangle support "
-                        "engine, sgl rectangle = 4-cycle engine")
+                        "engine, sgl rectangle = 4-cycle engine, sgl "
+                        "house = house engine, motif 3|4 = formula over the "
+                        "fast engines")
     p.add_argument("--partition", type=int, default=0, metavar="N",
                    help="(not ported)")
     p.add_argument("--profile", action="store_true",
@@ -122,6 +130,17 @@ def main(argv=None):
         pattern = ns.args[0] if ns.args else "diamond"
         out["total"] = sgl_count(g, pattern, fast=ns.fast, **run)
         out["pattern"] = pattern
+    elif ns.workload == "motif":
+        from .workloads.motif import motif_count
+        k = int(ns.args[0]) if ns.args else 4
+        out["counts"] = motif_count(g, k, chunk=ns.chunk, fast=ns.fast,
+                                    device=device)
+        out["k"] = k
+    elif ns.workload == "sc":
+        from .workloads.count import sc_count
+        pattern = ns.args[0] if ns.args else "hourglass"
+        out["total"] = sc_count(g, pattern, chunk=ns.chunk, device=device)
+        out["pattern"] = pattern
     out["load_s"] = round(t_load, 3)
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:
@@ -131,6 +150,7 @@ def main(argv=None):
         from .ops.cuda_colsum import bit_colsum, colsum_finish, colsum_pairs
         from .ops.cuda_expand import expand_bits
         from .ops.cuda_gram import bit_gram
+        from .ops.cuda_house import house_t3
         from .ops.cuda_hubcore import hub_tail_count
         from .ops.cuda_ring import ring_phase_c, ring_tail_pairs
         from .ops.cuda_stream import stream_bucket_count
@@ -149,7 +169,8 @@ def main(argv=None):
             for f in (stream_bucket_count, ring_phase_c, ring_tail_pairs,
                       hub_tail_count, expand_bits, lo_popcount, bit_gram,
                       quad_emit, quad_count, tri_bitmap, tri_probe,
-                      tri_lists, bit_colsum, colsum_pairs, colsum_finish)}
+                      tri_lists, bit_colsum, colsum_pairs, colsum_finish,
+                      house_t3)}
         out["profile"] = rep
 
     if ns.json:

@@ -122,52 +122,6 @@ __device__ __forceinline__ uint32_t cols_below(int32_t j, int32_t c) {
   return 0xFFFFFFFFu >> (32 - k);
 }
 
-// Adds one to the bit-sliced count of every column whose bit is set in
-// carry, from plane `from` up.
-__device__ __forceinline__ void add_word(uint32_t (&p)[NP], uint32_t carry,
-                                         int from = 0) {
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    if (i < from) continue;
-    if (!carry) break;
-    const uint32_t t = p[i] & carry;
-    p[i] ^= carry;
-    carry = t;
-  }
-}
-
-// h, l: the carry and sum bits of a + b + c, column by column.
-__device__ __forceinline__ void csa(uint32_t& h, uint32_t& l, uint32_t a,
-                                    uint32_t b, uint32_t c) {
-  const uint32_t u = a ^ b;
-  h = (a & b) | (u & c);
-  l = u ^ c;
-}
-
-// Adds w[0] + ... + w[7], column by column, to the counts: a carry-save
-// tree gives the 4-bit sum s0 + 2 s1 + 4 s2 + 8 s3, full adders add it to
-// planes 0-3, and the carry out ripples on.
-__device__ __forceinline__ void add_eight(uint32_t (&p)[NP],
-                                          const uint32_t (&w)[8]) {
-  uint32_t h1, l1, h2, l2, h3, l3, h5, l5;
-  csa(h1, l1, w[0], w[1], w[2]);
-  csa(h2, l2, w[3], w[4], w[5]);
-  csa(h3, l3, l1, l2, w[6]);             // w[0..6] = l3 + 2 (h1 + h2 + h3)
-  const uint32_t h4 = l3 & w[7];
-  csa(h5, l5, h1, h2, h3);
-  const uint32_t h6 = l5 & h4;
-  const uint32_t s[4] = {l3 ^ w[7], l5 ^ h4, h5 ^ h6, h5 & h6};
-  if (!(s[0] | s[1] | s[2] | s[3])) return;
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t a = p[i], u = a ^ s[i];
-    p[i] = u ^ c;
-    c = (a & s[i]) | (u & c);
-  }
-  add_word(p, c, 4);
-}
-
 // Sum over the columns of om of C(w, 2), w the count in planes p[0:np].
 __device__ __forceinline__ uint64_t word_pairs(const uint32_t (&p)[NP],
                                                uint32_t om, int np) {
@@ -244,13 +198,13 @@ colsum_pairs_kernel(const int64_t* __restrict__ rowptr,
           lo[r] = w.x;
           hi[r] = w.y;
         }
-        add_eight(p[0], lo);
-        add_eight(p[1], hi);
+        gm::add_eight(p[0], lo);
+        gm::add_eight(p[1], hi);
       }
       for (; s < len; ++s) {
         const uint2 w = row_pair(tab, v, pairs, cs, __ldg(ids + s), k);
-        add_word(p[0], w.x);
-        add_word(p[1], w.y);
+        gm::add_word(p[0], w.x);
+        gm::add_word(p[1], w.y);
       }
       if (it.w >= 0) {                        // a segment of a split row
         int32_t* row = counts + int64_t(it.w) * 32 * words;

@@ -66,6 +66,59 @@ __device__ __forceinline__ uint32_t count_in_sorted(const int32_t* row,
   return hits;
 }
 
+// Column counts kept bit-sliced: plane p[i] holds bit i of the count of each
+// of a word's 32 columns (kernels W's pairs mode and H). The caller keeps
+// every count below 2^N.
+//
+// Adds one to the count of every column whose bit is set in carry, from
+// plane `from` up.
+template <int N>
+__device__ __forceinline__ void add_word(uint32_t (&p)[N], uint32_t carry,
+                                         int from = 0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < from) continue;
+    if (!carry) break;
+    const uint32_t t = p[i] & carry;
+    p[i] ^= carry;
+    carry = t;
+  }
+}
+
+// h, l: the carry and sum bits of a + b + c, column by column.
+__device__ __forceinline__ void csa(uint32_t& h, uint32_t& l, uint32_t a,
+                                    uint32_t b, uint32_t c) {
+  const uint32_t u = a ^ b;
+  h = (a & b) | (u & c);
+  l = u ^ c;
+}
+
+// Adds w[0] + ... + w[7], column by column, to the counts: a carry-save
+// tree gives the 4-bit sum s0 + 2 s1 + 4 s2 + 8 s3, full adders add it to
+// planes 0-3, and the carry out ripples on.
+template <int N>
+__device__ __forceinline__ void add_eight(uint32_t (&p)[N],
+                                          const uint32_t (&w)[8]) {
+  static_assert(N >= 4, "add_eight adds a 4-bit sum");
+  uint32_t h1, l1, h2, l2, h3, l3, h5, l5;
+  csa(h1, l1, w[0], w[1], w[2]);
+  csa(h2, l2, w[3], w[4], w[5]);
+  csa(h3, l3, l1, l2, w[6]);             // w[0..6] = l3 + 2 (h1 + h2 + h3)
+  const uint32_t h4 = l3 & w[7];
+  csa(h5, l5, h1, h2, h3);
+  const uint32_t h6 = l5 & h4;
+  const uint32_t s[4] = {l3 ^ w[7], l5 ^ h4, h5 ^ h6, h5 & h6};
+  if (!(s[0] | s[1] | s[2] | s[3])) return;
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = p[i], u = a ^ s[i];
+    p[i] = u ^ c;
+    c = (a & s[i]) | (u & c);
+  }
+  add_word(p, c, 4);
+}
+
 // Block-wide sum of one value per thread of an NT-thread block (NT <= 1024);
 // thread 0 writes it to out[blockIdx.x]. Every thread of the block must
 // call it.

@@ -13,7 +13,8 @@ expand_emit (the k-clique engines' task enumerator), expand_multi (its
 prepass), kclique_dfs (an independent DFS k-clique counter that the
 tests and the smoke script hold the bitmap engines against) and c4_anchor
 (the rectangle engine's max-anchored wedge pass, which closes its
-recursion).
+recursion) and t3ss (the house engine's sub-sub-mid share of the per-edge
+3-walk support).
 
 Every entry point returns None when the library is unavailable (no g++ or
 a failed build); core/graph.py then takes its numpy path. Which path was
@@ -119,6 +120,9 @@ def get_lib():
         lib.gm_kclique.argtypes = [ctypes.c_int64, i64p, i32p, ctypes.c_int64]
         lib.gm_c4.restype = ctypes.c_int64
         lib.gm_c4.argtypes = [ctypes.c_int64, i64p, i32p]
+        lib.gm_t3ss.restype = None
+        lib.gm_t3ss.argtypes = [ctypes.c_int64, i64p, i32p, ctypes.c_int64,
+                                i32p]
         log.info("native preprocessing: %s (%d threads)", path,
                  lib.gm_num_threads())
         _lib = lib
@@ -285,3 +289,18 @@ def c4_anchor(rowptr: np.ndarray, colidx: np.ndarray):
     return int(lib.gm_c4(rowptr.shape[0] - 1,
                          np.ascontiguousarray(rowptr, np.int64),
                          np.ascontiguousarray(colidx, np.int32)))
+
+
+def t3ss(rowptr: np.ndarray, colidx: np.ndarray, cs: int):
+    """The sub-sub-mid share of the 3-walk support (gm_t3ss): for every
+    DAG edge (u, v), v > u, the pairs (x in N(u), y in N(v)) with x ~ y and
+    x, y < cs, int32 [nnz] at the edge's CSR position (col > row; the other
+    entries are 0). The rows must be sorted ascending. None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.zeros(colidx.shape[0], dtype=np.int32)
+    lib.gm_t3ss(rowptr.shape[0] - 1, np.ascontiguousarray(rowptr, np.int64),
+                np.ascontiguousarray(colidx, np.int32), cs, out)
+    return out

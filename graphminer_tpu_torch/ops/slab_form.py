@@ -23,6 +23,13 @@ gram_rows) plus Accᵀ M, M = Acc ⊙ 1[x < v], by one torch._int_mm of X's
 expansions; case B takes CHUNK_U sub-core u a step: X's gathered rows times
 M by torch._int_mm, plus W's write mode (the FT-prefix column sums) on a
 step with a sub neighbour; each Σ C(w, 2) in int64 on the device.
+
+The house engine's core-mid 3-walk share (house_t3_slab): the JAX form
+(graphminer_tpu/ops/house.py::_t3_edges) that kernel H (ops/cuda_house.py)
+replaced, kept as H's yardstick for chip_smoke.py: per DAG edge the
+bilinear xuᵀ·Acc·xv (X's expansions and torch._int_mm) and the dots
+⟨xu, WS[v]⟩ + ⟨xv, WS[u]⟩ with the WS rows by W's write mode, CHUNK_E
+edges a step, in int64 sums. It equals H's two calls added per edge.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from .cuda_expand import expand_bits
 SLAB_BYTES = 1 << 30
 #: sub-core u a case-B step of the rectangle yardstick
 CHUNK_U = 4096
+#: DAG edges a step of the house yardstick
+CHUNK_E = 8192
 #: CUDA streams the slabs take turns on by default; 2 beat 1 and 4 on the
 #: H100 (PERF.md; scripts/prof_breakdown.py --clique times 1, 2 and 4)
 HI_STREAMS = 2
@@ -209,3 +218,25 @@ def rectangle_level0_slab(table: torch.Tensor, ft, cs: int, c: int, keep,
     if cs:
         total += _case_b(table, ft, m, cs, c, chunk)
     return total
+
+
+def house_t3_slab(table: torch.Tensor, ft, cs: int, src: torch.Tensor,
+                  dst: torch.Tensor, chunk: int = CHUNK_E) -> torch.Tensor:
+    """int64 [n] xuᵀ·Acc·xv + ⟨xu, WS[v]⟩ + ⟨xv, WS[u]⟩ for the tasks (src,
+    dst) (int32, on table's device): table the full-core bitmaps int32
+    [V, words] with the core [cs, V), ft its FtLists (ftw = the sub-core
+    neighbours: WS[x] = bit_colsum over FT(x)); `chunk` tasks a step."""
+    cpad = 32 * table.shape[1]
+    acc = expand_bits(table[cs:], n_out=cpad)          # Acc, zero-padded
+    out = []
+    for s in range(0, src.shape[0], chunk):
+        u, v = src[s:s + chunk], dst[s:s + chunk]
+        n = u.shape[0]
+        xu = expand_bits(table, r=u, n_out=round_up(n, 32))
+        xv = expand_bits(table, r=v, n_out=n)
+        bil = (torch._int_mm(xu, acc)[:n] * xv).sum(1, dtype=torch.int64)
+        xu = xu[:n]
+        out.append(bil + (xu * bit_colsum(ft, table, v)).sum(
+            1, dtype=torch.int64) + (xv * bit_colsum(ft, table, u)).sum(
+            1, dtype=torch.int64))
+    return torch.cat(out)

@@ -235,6 +235,18 @@ def colsum_pairs_bytes(plan, tab) -> int:
         int(named.sum()) * tab.shape[1] * 4 + 8
 
 
+def house_bytes(ft, tab, a, b) -> int:
+    """The bytes kernel H (ops/cuda_house.py::house_t3) must move for one
+    call: each task's two ids and its result (12 B), each distinct a's list
+    once (its bounds included), and each distinct row that a slot of those
+    lists or a b names read once."""
+    _, x = ft.slots(torch.unique(a.long()))
+    ids = torch.cat([x, b.long()])
+    ids = torch.unique(ids[(ids >= 0) & (ids < tab.shape[0])])
+    return 12 * a.numel() + _distinct_list_bytes(ft, a) + \
+        ids.numel() * tab.shape[1] * 4
+
+
 def time_ms(fn, device, reps: int = 11):
     """Median time of fn() in ms over `reps` calls after two warm-up calls,
     and fn's first result. On a CUDA device each call is timed by a pair of
@@ -262,28 +274,33 @@ def time_ms(fn, device, reps: int = 11):
     return statistics.median(ts), val
 
 
-def device_ms(fn, calls: int = 200):
+def device_ms(fn, calls: int = 200, reads: int = 3):
     """(ms, ops) of fn() on the card: the device time of one call in ms —
     the device events torch.profiler records over `calls` calls after ten
     warm-up calls, summed, over the calls they cover — and {event name:
     events per call} of those events (kernels, memsets, copies). The
     profiler can miss an event at the edge of its window; when even the
     most frequent event came fewer than `calls` times, the sum is taken
-    over that many calls. Raises when the profiler recorded no device
-    event."""
+    over that many calls. CUPTI now and then hands the profiler no device
+    event at all: such a reading is taken again, `reads` readings in all,
+    and the function raises when none of them recorded a device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("torch.profiler recorded no device event")
+    for _ in range(reads):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device event in "
+                           f"{reads} readings")
     us = sum(e.time_range.elapsed_us() for e in dev)
     counts = Counter(e.name for e in dev)
     covered = min(calls, max(counts.values()))

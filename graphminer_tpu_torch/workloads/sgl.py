@@ -6,11 +6,10 @@ pattern dispatched by name (omp_base.cc:16-52) to generated kernels
 core.plan, or plans generated from a PatternGraph, interpreted by the
 frontier engine.
 
-fast=True routes diamond to ops/tri_support.py::diamond_count_fast and
-rectangle to ops/rectangle.py::rectangle_count_fast, on `device`. The
-house engine (graphminer_tpu's ops/house.py) is not ported yet: fast=True
-on house raises SystemExit naming ROADMAP.md, and nothing runs in its
-place.
+fast=True routes diamond to ops/tri_support.py::diamond_count_fast,
+rectangle to ops/rectangle.py::rectangle_count_fast and house to
+ops/house.py::house_count_fast, on `device`; other patterns take the
+frontier engine, as in JAX.
 """
 from __future__ import annotations
 
@@ -20,8 +19,8 @@ from ..device import DeviceLike
 from ..engine.frontier import count_pattern
 
 #: patterns with a specialized fast engine in the JAX package that is not
-#: ported yet (name -> its module there)
-FAST_ENGINES = {"house": "ops/house.py"}
+#: ported yet (name -> its module there): none
+FAST_ENGINES = {}
 
 
 def sgl_count(g, pattern, chunk: int = 1024, backend: str = "auto",
@@ -43,11 +42,9 @@ def sgl_count(g, pattern, chunk: int = 1024, backend: str = "auto",
         if key == "rectangle":
             from ..ops.rectangle import rectangle_count_fast
             return rectangle_count_fast(g, device=device)
-        mod = FAST_ENGINES.get(key)
-        if mod is not None:
-            raise SystemExit(
-                f"graphminer_tpu_torch: the fast {key} engine ({mod}) is "
-                "not ported yet (see ROADMAP.md, queue 1 item 6c)")
+        if key == "house":
+            from ..ops.house import house_count_fast
+            return house_count_fast(g, device=device)
     if isinstance(pattern, PatternGraph):
         plan = plan_from_pattern(pattern)
     elif pattern.startswith("@"):

@@ -1,4 +1,4 @@
-"""Kernels A-E, m3, m3b, R, X, L, G, Q, S, P, I and W against their plain
+"""Kernels A-E, m3, m3b, R, X, L, G, Q, S, P, I, W and H against their plain
 PyTorch versions on a CUDA card, A, B, C and E also as one grouped launch over many
 buckets.
 
@@ -19,9 +19,10 @@ import torch
 from graphminer_tpu_torch.io.synth import rmat
 from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
                                       cuda_cliquek, cuda_colsum, cuda_expand,
-                                      cuda_gram, cuda_hubcore, cuda_ring,
-                                      cuda_stream, cuda_tri, cuda_window,
-                                      fetch, rectangle, tri_support)
+                                      cuda_gram, cuda_house, cuda_hubcore,
+                                      cuda_ring, cuda_stream, cuda_tri,
+                                      cuda_window, fetch, house, rectangle,
+                                      tri_support)
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
@@ -1095,3 +1096,74 @@ def test_rectangle_on_card(dev, monkeypatch):
     assert not int_mm
     assert rectangle.rectangle_count_fast(g, core=256, device="cpu") == \
         52_988_519
+
+
+def house_tables(dev, seed, v=3000, w=128, max_deg=150, n_long=20):
+    """A bitmap table with bit 31 in every row and a CSR whose rows hold
+    ids outside [0, v) (and SENTINEL) and n_long rows of 1,100-3,000 slots
+    (longer than a segment), ftw in [-1, deg + 2] with some lists empty,
+    as FtLists on `dev`."""
+    rng = np.random.default_rng(seed)
+    tab = words(rng, v, w)
+    tab[:, -1] |= np.int32(-2**31)
+    deg = rng.integers(0, max_deg + 1, v)
+    deg[rng.choice(v, n_long, replace=False)] = rng.integers(1100, 3000,
+                                                             n_long)
+    colidx = rng.integers(-2, v + 2, int(deg.sum())).astype(np.int32)
+    colidx[::97] = SENTINEL
+    ftw = rng.integers(-1, deg + 3).astype(np.int32)
+    ftw[::13] = 0
+    rowptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    ft = cuda_tri.FtLists.from_csr(rowptr, colidx, ftw, dev)
+    return rng, torch.from_numpy(tab).to(dev), ft
+
+
+@pytest.mark.parametrize("order", ["random", "runs", "runs_of_1", "long"])
+@pytest.mark.parametrize("w", [8, 12, 128, 160])
+def test_house_t3(dev, w, order):
+    """H == its plain version, one launch a call: random tasks, sorted runs
+    longer than a window, runs of 1, and runs of 3,000 tasks (longer than a
+    piece) over lists up to 3,000 ids (longer than a segment); 12 words
+    leave lanes idle, 160 take two column stretches."""
+    rng, tab, ft = house_tables(dev, w + len(order), w=w)
+    v = tab.shape[0]
+    n = 40000
+    if order == "long":
+        a = np.repeat(rng.integers(0, v, n // 3000 + 1), 3000)[:n]
+        a = torch.from_numpy(a.astype(np.int32)).to(dev)
+    else:
+        a, _ = sgl_order(rng, dev, order, -2, v + 2, v, n, np.zeros(n))
+    b = sgl_ids(rng, dev, -2, v + 2, n)
+    n0 = cuda_house.house_t3.launches
+    got = cuda_house.house_t3(ft, tab, a, b)
+    assert cuda_house.house_t3.launches == n0 + 1
+    assert torch.equal(got, cuda_house.house_t3_plain(ft, tab, a, b))
+    assert got.any()
+
+
+def test_house_t3_launches_nothing_without_work(dev):
+    """No task, or no task with a list: no launch, zeros."""
+    _, tab, ft = house_tables(dev, 2, n_long=0)
+    e = torch.zeros(0, dtype=torch.int32, device=dev)
+    ids = torch.arange(-2, ft.n_vertices + 2, dtype=torch.int32, device=dev)
+    empty = cuda_tri.FtLists(rowptr=ft.rowptr, colidx=ft.colidx,
+                             ftw=torch.zeros_like(ft.ftw))
+    n0 = cuda_house.house_t3.launches
+    assert cuda_house.house_t3(ft, tab, e, e).numel() == 0
+    assert not cuda_house.house_t3(empty, tab, ids, ids).any()
+    assert cuda_house.house_t3.launches == n0
+
+
+@pytest.mark.parametrize("core", [64, 4096])
+def test_house_on_card(dev, core):
+    """rmat(10, 8, seed=5): T3 and the house count on the card equal the
+    CPU's; two launches of H a count (one when the core holds every
+    vertex)."""
+    g = rmat(10, 8, seed=5)
+    n0 = cuda_house.house_t3.launches
+    _, _, _, t3 = house.edge_t3(g, core=core, device=dev)
+    assert cuda_house.house_t3.launches - n0 == (2 if core < 1024 else 1)
+    assert torch.equal(t3.cpu(), house.edge_t3(g, core=core,
+                                               device="cpu")[3])
+    assert house.house_count_fast(g, core=core, device=dev) == \
+        house.house_count_fast(g, core=core, device="cpu") > 0

@@ -1,8 +1,9 @@
-"""The plain PyTorch versions of kernels S, P, I (ops/cuda_tri.py) and W
-(ops/cuda_colsum.py) against the JAX package's expressions they replace
-(graphminer_tpu/ops/tri_support.py::_bitmap_tri, ::_subcore_bit_probe,
-::_list_intersect and the wsub sum of ops/rectangle.py::_case_b) on random
-inputs from numpy seeds: words with bit 31 set, lists read in place from a
+"""The plain PyTorch versions of kernels S, P, I (ops/cuda_tri.py), W
+(ops/cuda_colsum.py) and H (ops/cuda_house.py) against the JAX package's
+expressions they replace (graphminer_tpu/ops/tri_support.py::_bitmap_tri,
+::_subcore_bit_probe, ::_list_intersect, the wsub sum of
+ops/rectangle.py::_case_b and ops/house.py::_t3_edges) or numpy
+definitions on random inputs from numpy seeds: words with bit 31 set, lists read in place from a
 sorted CSR (JAX gets them gathered and SENTINEL padded), ids outside the
 table, SENTINEL, and empty inputs. All exact. The kernels themselves run
 only on a card (tests/test_torch_kernels.py)."""
@@ -179,10 +180,14 @@ def test_wrappers_refuse_bad_arguments():
 
 
 def test_fast_house_still_exits_naming_roadmap():
+    """sgl house --fast no longer exits: it runs the house engine
+    (ops/house.py), which agrees with the generic plan."""
     from graphminer_tpu_torch.io.synth import rmat
-    with pytest.raises(SystemExit) as e:
-        sgl_count(rmat(8, 8, seed=1), "house", fast=True, device="cpu")
-    assert "ROADMAP.md" in str(e.value) and "item 6c" in str(e.value)
+    from graphminer_tpu_torch.workloads.sgl import FAST_ENGINES
+    g = rmat(7, 8, seed=1)
+    assert FAST_ENGINES == {}
+    assert sgl_count(g, "house", fast=True, device="cpu") == \
+        sgl_count(g, "house", device="cpu") > 0
 
 
 # --- S and P on the task orders their windows meet -------------------------
@@ -532,3 +537,156 @@ def test_tri_lists_long_lists_and_ids_outside():
     assert np.array_equal(got.numpy(), want) and want.max() > 100
     check_model_lists(ft, rowptr, colidx, ftw, u, w, want,
                       ((cuda_tri.I_LANES, cuda_tri.I_IDS),))
+
+
+# --- H: per-edge 3-walk support over per-run column counts ---------------
+#
+# house_t3(ft, tab, a, b)[t] = Σ_{x ∈ L(a_t)} popcount(tab[x] & tab[b_t]).
+# The plain version against a numpy definition, a numpy model of the
+# kernel's walk over plan_house's items (C_a bit-sliced in planes, pieces
+# and segments cut small so that runs and lists split), the two calls of
+# the house engine against JAX's _t3_edges, and house_bytes.
+
+def house_csr(rng, v, max_deg, n_long=0):
+    """Rows with ids outside [0, v) (negative, v and above, SENTINEL),
+    n_long rows of 1,100-1,500 slots (longer than cuda_house.SEG), ftw in
+    [-1, deg + 2] with some lists empty."""
+    deg = rng.integers(0, max_deg + 1, v)
+    deg[rng.choice(v, n_long, replace=False)] = rng.integers(1100, 1500,
+                                                             n_long)
+    colidx = rng.integers(-3, v + 3, int(deg.sum())).astype(np.int32)
+    colidx[::97] = SENTINEL
+    ftw = rng.integers(-1, deg + 3).astype(np.int32)
+    ftw[::13] = 0
+    return np.concatenate([[0], np.cumsum(deg)]).astype(np.int64), colidx, ftw
+
+
+def house_definition(rowptr, colidx, ftw, tab, a, b):
+    """Σ over x in L(a_t) (ids in [0, V)) of popcount(tab[x] & tab[b_t]),
+    int64, task by task."""
+    v = tab.shape[0]
+    bits = np.unpackbits(tab.view(np.uint8), axis=1).astype(np.int64)
+    out = np.zeros(a.size, dtype=np.int64)
+    for i, (x0, y) in enumerate(zip(a, b)):
+        if not (0 <= x0 < v and 0 <= y < v):
+            continue
+        n = max(0, min(int(ftw[x0]), int(rowptr[x0 + 1] - rowptr[x0])))
+        xs = colidx[rowptr[x0]:rowptr[x0] + n]
+        xs = xs[(xs >= 0) & (xs < v)]
+        out[i] = int((bits[xs] & bits[y]).sum())
+    return out
+
+
+def model_house(ft, rowptr, colidx, tab, a, b, piece, seg):
+    """Kernel H's walk (csrc/house_t3.cu) in numpy over plan_house(ft, a,
+    piece, seg): an item's segment counted into bit planes (each count below
+    2^11), each task of its piece dotted as Σ_i 2^i popcount(p_i & w) and
+    added into out. Also returns the items."""
+    from graphminer_tpu_torch.ops.cuda_house import plan_house
+    v = tab.shape[0]
+    items = plan_house(ft, t(a), piece, seg).numpy()
+    bits = np.unpackbits(tab.view(np.uint8), axis=1).astype(np.int64)
+    out = np.zeros(a.size, dtype=np.int64)
+    for t0, nt, s0, ns in items:
+        assert 1 <= ns <= seg and 1 <= nt <= piece
+        assert (a[t0:t0 + nt] == a[t0]).all()
+        xs = colidx[rowptr[a[t0]] + s0:rowptr[a[t0]] + s0 + ns]
+        cnt = bits[xs[(xs >= 0) & (xs < v)]].sum(axis=0)
+        assert cnt.max(initial=0) < 1 << 11
+        planes = (cnt[None, :] >> np.arange(11)[:, None]) & 1
+        for i in range(t0, t0 + nt):
+            if 0 <= b[i] < v:
+                out[i] += int(((planes & bits[b[i]]).sum(axis=1)
+                               << np.arange(11)).sum())
+    return out, items
+
+
+HOUSE_CASES = (("long_runs", 8, 0), ("runs_of_1", 4, 0),
+               ("unsorted", 12, 0), ("window_edges", 8, 3))
+
+
+@pytest.mark.parametrize("order,w,n_long", HOUSE_CASES)
+def test_house_t3_plain_equals_definition(order, w, n_long):
+    """The plain version and the kernel's walk against the definition:
+    bit 31 in every word, ids outside [0, V) as a, as b and in the lists,
+    empty lists, runs of 1, runs longer than a piece, no order, and lists
+    longer than a segment (the default plan and a small one)."""
+    from graphminer_tpu_torch.ops import cuda_house
+    rng = np.random.default_rng(w + n_long)
+    v = 400
+    tab = bit31_table(rng, v, w)
+    rowptr, colidx, ftw = house_csr(rng, v, 60, n_long)
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    a = ordered_ids(rng, order, v, 3000)
+    b = ordered_ids(rng, "unsorted", v, 3000)
+    want = house_definition(rowptr, colidx, ftw, tab, a, b)
+    got = cuda_house.house_t3(ft, t(tab), t(a), t(b))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert want.max() > 0 and (want == 0).any()
+    for piece, seg in ((cuda_house.PIECE, cuda_house.SEG), (37, 20)):
+        got, items = model_house(ft, rowptr, colidx, tab, a, b, piece, seg)
+        assert np.array_equal(got, want)
+    assert (items[:, 2] > 0).any() or (items[:, 1] == 37).any()  # cut
+
+
+def test_house_t3_empty_and_bounds():
+    """No task: an empty result; every list empty: zeros; a call whose
+    longest list times 32 words could pass int32 is refused."""
+    from graphminer_tpu_torch.ops import cuda_house
+    _, tab, rowptr, colidx, ftw, ft = fixture(3)
+    e = t(np.zeros(0, np.int32))
+    assert cuda_house.house_t3(ft, t(tab), e, e).shape == (0,)
+    assert cuda_house.plan_house(ft, e).shape == (0, 4)
+    ft0 = FtLists.from_csr(rowptr, colidx, np.zeros_like(ftw), "cpu")
+    ids = t(np.arange(ftw.size))
+    assert not cuda_house.house_t3(ft0, t(tab), ids, ids).any()
+    assert cuda_house.plan_house(ft0, ids).shape == (0, 4)
+    big = FtLists(rowptr=torch.tensor([0, 1 << 24], dtype=torch.int64),
+                  colidx=torch.zeros(1 << 24, dtype=torch.int32),
+                  ftw=torch.tensor([1 << 24], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cuda_house.house_t3(big, torch.zeros((1, 8), dtype=torch.int32),
+                            t([0]), t([0]))
+
+
+def test_house_calls_equal_jax_t3_edges():
+    """H's two calls (the whole rows with tasks (u, v); FT with tasks
+    (v, u)) plus the bridge's t3ss give JAX's _t3_edges + t3ss (edge_t3)
+    at core 32, edge for edge."""
+    from graphminer_tpu.core.graph import HostGraph as JHostGraph
+    from graphminer_tpu.ops import house as jh
+    from graphminer_tpu_torch import native_bridge
+    from graphminer_tpu_torch.io.synth import rmat
+    from graphminer_tpu_torch.ops import house, tri_support
+    from graphminer_tpu_torch.ops.cuda_house import house_t3
+    g = rmat(9, 8, seed=2)
+    rg = g.relabel_by_degree(descending=False)
+    c, cs, words_ = tri_support.core_split(rg, 32)
+    deg, core_nb = tri_support.core_neighbours(rg, cs)
+    tab = t(tri_support._pack_full_core_bitmaps(rg, cs, words_))
+    src, dst = house._dag_edges(rg)
+    rows = FtLists.from_csr(rg.rowptr, rg.colidx, deg, "cpu")
+    ft = FtLists.from_csr(rg.rowptr, rg.colidx, deg - core_nb, "cpu")
+    ss = native_bridge.t3ss(rg.rowptr, rg.colidx, cs)[
+        rg.colidx > np.repeat(np.arange(rg.n_vertices), deg)]
+    got = house_t3(rows, tab, t(src), t(dst)).numpy().astype(np.int64) + \
+        house_t3(ft, tab, t(dst), t(src)).numpy() + ss
+    _, jsrc, jdst, want = jh.edge_t3(
+        JHostGraph(rowptr=g.rowptr, colidx=g.colidx), core=32)
+    assert np.array_equal(src, jsrc) and np.array_equal(dst, jdst)
+    assert np.array_equal(got, want) and ss.any()
+
+
+def test_house_bytes_adds_up():
+    """12 B a task, each distinct a's list (20 B of bounds and 4 B an id)
+    and each distinct row a list slot or a b names (ids in [0, V))."""
+    from graphminer_tpu_torch.utils.profiling import house_bytes
+    rowptr = np.array([0, 2, 3, 5, 5], dtype=np.int64)
+    colidx = np.array([1, 2, 7, 3, -1], dtype=np.int32)
+    ft = FtLists.from_csr(rowptr, colidx, np.array([2, 9, 1, 0]), "cpu")
+    tab = torch.zeros((4, 8), dtype=torch.int32)
+    a, b = t([0, 0, 2, 3, 9]), t([3, 1, 0, 0, 5])
+    # lists: 0 -> [1, 2], 2 -> [3], 3 -> [] (a 9 names none);
+    # rows: {1, 2, 3} from the lists, {3, 1, 0} from b: 4 rows of 32 B
+    assert house_bytes(ft, tab, a, b) == \
+        12 * 5 + (20 * 3 + 4 * 3) + 4 * 8 * 4
