@@ -117,14 +117,19 @@ fails (non-zero exit, no result line) when any phase fails:
      pairs mode in turns with the yardstick, and the yardstick's Gram and
      case B beside their int8 operation bounds;
  16. runs the fast house engine and the motif and sc verbs: holds kernel H
-     against its plain version on random inputs (4-128 words, bit 31, ids
+     against its plain version on random inputs (4-160 words, bit 31, ids
      outside [0, V), empty lists, runs of 1, sorted runs of up to 30,000
-     tasks over lists of up to 1,500 ids, no order; no launch without a
-     task) and on both calls of the rmat14 and rmat18 counts;
+     tasks over lists of up to 30,000 ids, no order; graph-like tables
+     with and without the sparse view, rows on both sides of the plan's
+     density threshold and at it, plans built before the call and the
+     wrapper's own, block or warp items alone; no launch without a task)
+     and on both calls of the rmat14 and rmat18 counts;
      house_count_fast at rmat14 and rmat18 against bench.py:86-87 (two H
      launches a count); the rmat18 count's t3ss host time and the count
      under torch.profiler; H's calls timed at rmat18 beside their bounds
-     and plain versions, and both in turns with the JAX form they replaced
+     and plain versions (the wrapper's plan included, a plan built before,
+     the plan alone and the kernel alone; what each plan holds), and both
+     in turns with the JAX form they replaced
      (X + torch._int_mm + W's write mode); then the CLI on the card: sgl
      house --fast == generic at rmat12, motif 3 and 4 --fast at rmat18
      against their goldens (B and C; S, P, I, G, L and W's pairs mode once
@@ -2694,45 +2699,134 @@ MOTIF_KERNELS = {"3": ("ring_phase_c", "ring_tail_pairs"),
                        "lo_popcount", "colsum_pairs")}
 
 
+#: a row's set bits in h_graph's `exact` rows: cuda_house.LIST_SPARSE, the
+#: lists' average at which the plan turns from block to warp items
+H_EXACT = 128
+
+
+def h_graph(rng, v, c, n_long, long_len, exact=200, max_deg=160):
+    """A graph-like CSR (sorted rows, no repeated id) whose ids >= cs = v - c
+    are the core, and its core table (row x: x's core ids less cs, as the
+    house engine packs it): (rowptr, colidx, tab, nbc, cs). Core ids are
+    drawn more often, so rows fall on both sides of LIST_SPARSE;
+    n_long rows of long_len ids; `exact` rows with exactly H_EXACT core
+    ids."""
+    cs = v - c
+    deg = rng.integers(0, max_deg + 1, v)
+    deg[rng.choice(v, n_long, replace=False)] = rng.integers(*long_len,
+                                                             n_long)
+    rows = [np.unique(np.concatenate([rng.integers(0, v, d),
+                                      rng.integers(cs, v, d // 2)]))
+            for d in deg]
+    for x in rng.choice(v, exact, replace=False):
+        rows[x] = np.concatenate([
+            np.sort(rng.choice(cs, 20, replace=False)),
+            cs + np.sort(rng.choice(c, H_EXACT, replace=False))])
+    rowptr = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    colidx = np.concatenate(rows).astype(np.int32)
+    src = np.repeat(np.arange(v), np.diff(rowptr))
+    core = colidx >= cs
+    tab = np.zeros((v, c // 32), dtype=np.uint32)
+    cc = colidx[core].astype(np.int64) - cs
+    np.bitwise_or.at(tab, (src[core], cc >> 5),
+                     np.uint32(1) << (cc & 31).astype(np.uint32))
+    nbc = np.bincount(src[core], minlength=v).astype(np.int32)
+    return rowptr, colidx, tab.view(np.int32), nbc, cs
+
+
+def h_tasks(rng, order, v, n):
+    """n list owners in `order` ("unsorted", "runs of 1", "runs" of
+    150-300, "long runs" of 5,000-30,000), ids outside [0, v) among
+    them."""
+    if order == "unsorted":
+        return rng.integers(-2, v + 2, n)
+    if order == "runs of 1":
+        return np.resize(np.arange(-2, v + 2), n)
+    lens = (rng.integers(150, 301, n // 150 + 1) if order == "runs"
+            else rng.integers(5000, 30001, n // 5000 + 1))
+    return np.repeat(np.sort(rng.integers(-2, v + 2, lens.size)), lens)[:n]
+
+
 def h_random():
     """H against its plain version on random inputs: 4-128 words with bit
     31 in every row, lists with ids outside [0, V) and SENTINEL, empty
     lists, runs of 1, sorted runs of 150-300 and of up to 30,000 tasks over
-    lists of up to 1,500 ids, no order; a call with no task launches
-    nothing, and a table whose words are no multiple of 4 is refused."""
+    lists of up to 1,500 and of 5,000-30,000 ids, no order; graph-like
+    tables with the sparse view, rows dense and sparse on both sides of
+    LIST_SPARSE (rows with exactly that many set bits among them), each
+    call with the view and without it, with a plan built before the call
+    and with the wrapper's own, and over plans of block items alone and of
+    warp items alone; a call with no task launches nothing, and a table
+    whose words are no multiple of 4 is refused."""
+    from graphminer_tpu_torch.ops import _build
     from graphminer_tpu_torch.ops import cuda_house as ch
     from graphminer_tpu_torch.ops.cuda_tri import FtLists
     rng = np.random.default_rng(16)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(
         a, dtype=np.int32)).cuda()
     v = 20000
-    for w, order, n in ((4, "runs", 200_000), (8, "unsorted", 200_000),
-                        (12, "runs of 1", 100_000), (40, "runs", 200_000),
-                        (128, "runs", 400_000), (128, "long runs", 300_000),
-                        (128, "unsorted", 200_000)):
+    for w, order, n, long_len in (
+            (4, "runs", 200_000, (600, 1501)),
+            (8, "unsorted", 200_000, (600, 1501)),
+            (12, "runs of 1", 100_000, (600, 1501)),
+            (40, "runs", 200_000, (600, 1501)),
+            (128, "runs", 400_000, (600, 1501)),
+            (128, "long runs", 300_000, (600, 1501)),
+            (128, "unsorted", 200_000, (600, 1501)),
+            (128, "long runs", 300_000, (5000, 30001)),
+            (160, "runs", 200_000, (5000, 30001))):
         tab = _words(rng, (v, w)) | np.int32(-2**31)
+        sparse = rng.random(v) < 0.5
+        tab[sparse] &= _words(rng, (int(sparse.sum()), w)) & \
+            _words(rng, (int(sparse.sum()), w)) & \
+            _words(rng, (int(sparse.sum()), w)) & \
+            _words(rng, (int(sparse.sum()), w))
         deg = rng.integers(0, 161, v)
-        deg[rng.choice(v, 300, replace=False)] = rng.integers(600, 1501, 300)
+        deg[rng.choice(v, 300, replace=False)] = rng.integers(*long_len, 300)
         colidx = rng.integers(-2, v + 2, int(deg.sum())).astype(np.int32)
         colidx[::97] = SENTINEL
         ftw = rng.integers(-1, deg + 3)
         ftw[::13] = 0
         ft = FtLists.from_csr(np.concatenate([[0], np.cumsum(deg)]), colidx,
                               ftw, "cuda")
-        if order == "unsorted":
-            a = rng.integers(-2, v + 2, n)
-        elif order == "runs of 1":
-            a = np.resize(np.arange(-2, v + 2), n)
-        else:
-            lens = (rng.integers(150, 301, n // 150 + 1) if order == "runs"
-                    else rng.integers(5000, 30001, n // 5000 + 1))
-            a = np.repeat(np.sort(rng.integers(-2, v + 2, lens.size)),
-                          lens)[:n]
+        args = (ft, t(tab), t(h_tasks(rng, order, v, n)),
+                t(rng.integers(-2, v + 2, n)))
+        plan = ch.plan_house(*args[:3])
+        compare("house_t3", ch.house_t3(*args, plan=plan),
+                ch.house_t3_plain(*args),
+                f"random, {w} words, {order}, {n} tasks, lists of "
+                f"{long_len[0]}-{long_len[1] - 1} ids, {plan.n_block} "
+                f"block and {plan.items.shape[0] - plan.n_block} warp items")
+    for order, n, c in (("runs", 300_000, 4096), ("long runs", 300_000, 4096),
+                        ("unsorted", 200_000, 4096),
+                        ("runs of 1", 100_000, 4096),
+                        ("runs", 200_000, 8192)):
+        v = 40000
+        rowptr, colidx, tab, nbc, cs = h_graph(rng, v, c, 40, (5000, 30001))
+        deg = np.diff(rowptr)
+        ftw = np.where(rng.random(v) < 0.5, deg, rng.integers(-1, deg + 3))
+        ft = FtLists.from_csr(rowptr, colidx, ftw, "cuda")
+        a = h_tasks(rng, order, v, n)
         args = (ft, t(tab), t(a), t(rng.integers(-2, v + 2, n)))
-        items = ch.plan_house(ft, args[2])
-        compare("house_t3", ch.house_t3(*args), ch.house_t3_plain(*args),
-                f"random, {w} words, {order}, {n} tasks, {items.shape[0]} "
-                f"items")
+        view = ch.HouseView(nbc=t(nbc), cs=cs)
+        plan = ch.plan_house(*args[:3], view)
+        plain = ch.house_t3_plain(*args)
+        what = (f"graph-like, {c // 32} words, {order}, {n} tasks, lists of "
+                f"up to {int(deg.max())} ids, {plan.n_block} block and "
+                f"{plan.items.shape[0] - plan.n_block} warp items")
+        for label, kw in (("view, plan before", dict(view=view, plan=plan)),
+                          ("view, own plan", dict(view=view)),
+                          ("no view, plan before", dict(plan=plan)),
+                          ("no view, own plan", {})):
+            compare("house_t3", ch.house_t3(*args, **kw), plain,
+                    f"{what}, {label}")
+        entry = _build.entry("gm_house_t3")
+        for kind, sparse in (("block", 1 << 20), ("warp", -1)):
+            one = ch.plan_house(*args[:3], view, sparse=sparse)
+            for v_ in (view, None):
+                compare("house_t3", ch.launch(entry, *args, v_, one), plain,
+                        f"{what}, {kind} items alone, "
+                        f"{'view' if v_ else 'no view'}")
     n0 = ch.house_t3.launches
     e = t(np.zeros(0))
     check(ch.house_t3(ft, t(tab), e, e).numel() == 0 and
@@ -2742,70 +2836,88 @@ def h_random():
         check(False, "house_t3 took a table of 1 word")
     except ValueError:
         pass
-    say("house_t3 == plain on random inputs (4-128 words, runs of up to "
-        "30,000 tasks, lists of up to 1,500 ids); no launch without tasks")
+    say("house_t3 == plain on random inputs (4-160 words, runs of up to "
+        "30,000 tasks, lists of up to 30,000 ids; graph-like tables with "
+        "and without the view, plans built before and the wrapper's own, "
+        "block or warp items alone); no launch without tasks")
 
 
 def h_calls(g):
-    """(src, dst, cs, [(H's arguments, edges)]) of the house count of g,
-    built as edge_t3 builds them, on the card."""
+    """(src, dst, cs, [(H's arguments, its view and plan, edges)]) of the
+    house count of g, built as edge_t3 builds them, on the card."""
     from graphminer_tpu_torch.ops.house import house_calls
     rg = g.relabel_by_degree(descending=False)
     return house_calls(rg, 4096, "cuda")
 
 
-def h_timing(calls):
+def h_timing(calls, g18):
     """H's two calls at rmat18 timed beside their bounds and plain
-    versions (and held to them), each call's kernel alone on the device
-    (torch.profiler), then both calls in turns with the JAX form they
-    replaced (ops/slab_form.py::house_t3_slab: X + torch._int_mm + W's
-    write mode, the library row), which is timed once a turn (~10 s a
-    call)."""
+    versions (and held to them): event times with the wrapper's plan
+    included (`ms`, as the first design was timed) and with a plan built
+    before the call (`prebuilt_ms`), the plan alone (`plan_ms`), the
+    kernel alone on the device (torch.profiler), and what each plan holds
+    (cuda_house.house_work); then both calls, their plans included, in
+    turns with the JAX form they replaced (ops/slab_form.py::house_t3_slab:
+    X + torch._int_mm + W's write mode, the library row), which is timed
+    once a turn (~10 s a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from graphminer_tpu_torch.ops import cuda_house as ch
-    from graphminer_tpu_torch.ops.cuda_tri import _starts
     from graphminer_tpu_torch.ops.slab_form import house_t3_slab
+    from graphminer_tpu_torch.ops.tri_support import core_neighbours
     from graphminer_tpu_torch.utils import profiling as pf
     src, dst, cs, parts = calls
-    res = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0)
-    for i, (args, idx) in enumerate(parts, 1):
-        k_ms, kv = time_ms(lambda: ch.house_t3(*args))
+    rg = g18.relabel_by_degree(descending=False)
+    core_nb = core_neighbours(rg, cs)[1]
+    res = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0,
+               prebuilt_ms=0.0, plan_ms=0.0)
+    for i, (args, kw, idx) in enumerate(parts, 1):
+        k_ms, kv = time_ms(lambda: ch.house_t3(*args, view=kw["view"]))
+        x_ms, xv = time_ms(lambda: ch.house_t3(*args, **kw))
+        l_ms, _ = time_ms(lambda: ch.plan_house(*args[:3], kw["view"]).items)
         p_ms, pv = pf.time_ms(lambda: ch.house_t3_plain(*args), "cuda", 1)
         compare("house_t3", kv, pv, f"rmat18 call {i}, {idx.numel()} tasks")
+        compare("house_t3", xv, pv, f"rmat18 call {i}, a plan built before")
         for _ in range(DEVICE_READS):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
-                    ch.house_t3(*args)
+                    ch.house_t3(*args, **kw)
                 torch.cuda.synchronize()
             us = [e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA and
-                  "house_t3_kernel" in e.name]
+                  "house_t3" in e.name]
             if us:
                 break
         d_ms = sum(us) / len(us) / 1e3 if us else None
         nbytes = pf.house_bytes(*args)
         b = pf.bound_ms(nbytes)
-        items = ch.plan_house(args[0], args[2])
+        host = lambda x: x.cpu().numpy()
+        work = ch.house_work(host(args[2]), host(args[3]), rg.rowptr,
+                             rg.colidx, host(args[0].ftw), core_nb,
+                             host(kw["plan"].items), kw["plan"].n_block,
+                             args[1].shape[1])
         res["ms"] += k_ms
+        res["prebuilt_ms"] += x_ms
+        res["plan_ms"] += l_ms
         res["plain_ms"] += p_ms
         res["bound_ms"] += b[0]
         res["device_ms"] = None if None in (d_ms, res["device_ms"]) \
             else res["device_ms"] + d_ms
         res["bound_by"] = b[1]
-        say(f"[{CARD}] house_t3 rmat18 call {i} ({idx.numel()} tasks, "
-            f"{items.shape[0]} items, {int(_starts(args[2]).sum())} runs, 1 "
-            f"launch):"
-            f" kernel {k_ms:.4f} ms (the plan included; the kernel alone "
-            f"on the device {shown(d_ms)}), plain {p_ms:.3f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]}, {nbytes} B)")
+        say(f"[{CARD}] house_t3 rmat18 call {i} ({idx.numel()} tasks, 1 "
+            f"launch): kernel {k_ms:.4f} ms (the wrapper's plan included; "
+            f"with a plan built before {x_ms:.4f} ms; the plan alone "
+            f"{l_ms:.4f} ms; the kernel alone on the device "
+            f"{shown(d_ms)}), plain {p_ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}, {nbytes} B); plan {json.dumps(work)}")
     table, ft = parts[-1][0][1], parts[-1][0][0]
     s32, d32 = parts[0][0][2], parts[0][0][3]
 
     def by_h():
         t3 = torch.zeros(src.shape[0], dtype=torch.int64, device="cuda")
-        for args, idx in parts:
-            t3.index_add_(0, idx, ch.house_t3(*args).to(torch.int64))
+        for args, kw, idx in parts:
+            t3.index_add_(0, idx, ch.house_t3(
+                *args, view=kw["view"]).to(torch.int64))
         return t3
 
     def yard_once():
@@ -2882,8 +2994,9 @@ def run_house(g18):
     for scale in (14, 18):
         g = g18 if scale == 18 else rmat(14, 16, seed=7)
         calls[scale] = h_calls(g)
-        for i, (args, idx) in enumerate(calls[scale][3], 1):
-            compare("house_t3", ch.house_t3(*args), ch.house_t3_plain(*args),
+        for i, (args, kw, idx) in enumerate(calls[scale][3], 1):
+            compare("house_t3", ch.house_t3(*args, **kw),
+                    ch.house_t3_plain(*args),
                     f"rmat{scale} call {i}, {idx.numel()} tasks")
         t0 = time.perf_counter()
         got, n = run_path(f"house rmat{scale}",
@@ -2903,7 +3016,7 @@ def run_house(g18):
     profiled_count("house_count_fast rmat18",
                    lambda: house_count_fast(g18, device="cuda"),
                    GOLDEN_HOUSE[18])
-    res = h_timing(calls[18])
+    res = h_timing(calls[18], g18)
     del calls
 
     # the CLI on the card: house, motif and sc
@@ -3006,7 +3119,7 @@ def main():
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "host_us", "library_host_us",
              "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms",
-             "level0_ms", "both_calls_ms")
+             "level0_ms", "both_calls_ms", "prebuilt_ms", "plan_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

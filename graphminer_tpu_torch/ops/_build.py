@@ -134,9 +134,10 @@ _SIGNATURES = {
     "gm_colsum_pairs_blocks": [],
     # counts, long_u, n_long, words, cs, c, total, n_blocks, stream
     "gm_colsum_finish": [_VP, _VP, _I64, _I64, _I64, _I64, _VP, _I64, _VP],
-    # rowptr, colidx, tab, v, words, a, b, items, m, out, n_blocks, stream
-    "gm_house_t3": [_VP, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _I64, _VP,
-                    _I64, _VP],
+    # rowptr, colidx, tab, v, words, a, b, items, n_block, m, nbc, cs, out,
+    # n_blocks, stream
+    "gm_house_t3": [_VP, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _I64, _I64,
+                    _VP, _I64, _VP, _I64, _VP],
 }
 
 

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .cuda_house import house_t3
+from .cuda_house import HouseView, house_t3, plan_house
 from .cuda_tri import FtLists
 from .tri_support import (CORE, _pack_full_core_bitmaps, core_neighbours,
                           core_split, tri_support)
@@ -94,11 +94,14 @@ def _t3ss_host(rg, cs: int) -> np.ndarray:
 def house_calls(rg, core: int, device):
     """The calls of kernel H that edge_t3 makes over rg, the relabeled
     graph: (src, dst, cs, calls), the DAG edges (int64 numpy, CSR order),
-    the core's first id and [(house_t3 arguments, the edges they count,
-    int64 on the device)]: the whole rows with the tasks (u, v) in CSR
-    order (y core, x any) and, when the core leaves sub-core vertices, FT
-    with the tasks (v, u) sorted by v (y sub, x core; only those with a
-    sub-core v neighbour and a core u neighbour, the rest add 0)."""
+    the core's first id and [(house_t3's arguments, its view and plan as
+    keywords, the edges they count, int64 on the device)]: the whole rows
+    with the tasks (u, v) in CSR order (y core, x any) and, when the core
+    leaves sub-core vertices, FT with the tasks (v, u) sorted by v (y sub,
+    x core; only those with a sub-core v neighbour and a core u neighbour,
+    the rest add 0). Both calls' plans are built here, on the device,
+    before either call is launched, and their view is the core suffix of
+    each sorted row (FBc[x]'s set bits)."""
     dev = resolve_device(device)
     c, cs, words = core_split(rg, core)
     deg, core_nb = core_neighbours(rg, cs)
@@ -106,7 +109,8 @@ def house_calls(rg, core: int, device):
     src, dst = _dag_edges(rg)
     t32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)
     rows = FtLists.from_csr(rg.rowptr, rg.colidx, deg, dev)
-    calls = [((rows, table, t32(src), t32(dst)),
+    view = HouseView(nbc=t32(core_nb), cs=cs)
+    calls = [((rows, table, t32(src), t32(dst)), dict(view=view),
               torch.arange(src.shape[0], device=dev))]
     if cs:
         ftw = deg - core_nb
@@ -114,7 +118,9 @@ def house_calls(rg, core: int, device):
         sel = sel[np.argsort(dst[sel], kind="stable")]
         ft = FtLists(rowptr=rows.rowptr, colidx=rows.colidx, ftw=t32(ftw))
         calls.append(((ft, table, t32(dst[sel]), t32(src[sel])),
-                      torch.from_numpy(sel).to(dev)))
+                      dict(view=view), torch.from_numpy(sel).to(dev)))
+    for args, kw, _ in calls:
+        kw["plan"] = plan_house(*args[:3], view)
     return src, dst, cs, calls
 
 
@@ -130,8 +136,8 @@ def edge_t3(g, core: int = CORE, device: DeviceLike = "cuda"):
         "T3 <= deg(u) deg(v) must fit kernel H's int32 sums"
     src, dst, cs, calls = house_calls(rg, core, dev)
     t3 = torch.zeros(src.shape[0], dtype=torch.int64, device=dev)
-    for args, idx in calls:
-        t3.index_add_(0, idx, house_t3(*args).to(torch.int64))
+    for args, kw, idx in calls:
+        t3.index_add_(0, idx, house_t3(*args, **kw).to(torch.int64))
     if cs:
         # x, y sub: the native pass on the host
         from .. import native_bridge

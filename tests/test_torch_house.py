@@ -121,3 +121,26 @@ def test_yardstick_equals_kernel_calls():
         house_t3(ft, table, t(dst), t(src)).long()
     got = house_t3_slab(table, ft, cs, t(src), t(dst), chunk=1000)
     assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_prof_house_counts():
+    """scripts/prof_house.py's counting on the CPU (rmat11 at core 256,
+    both calls): every task dotted once by the new plan, against the first
+    design's segments; slots built once a list in call 1; fewer popcounts
+    and table rows read; the tasks on either side of LIST_SPARSE (in block
+    and in warp items) add up to the tasks."""
+    from graphminer_tpu_torch.scripts import prof_house
+    out = prof_house.main(["--scale", "11", "--core", "256",
+                           "--device", "cpu"])
+    assert len(out["calls"]) == 2
+    for c in out["calls"]:
+        new, first = c["work"]["built"], c["work"]["first design"]
+        assert new["dotted_over_n"] == 1.0 <= first["dotted_over_n"]
+        assert new["distinct_slots"] == first["distinct_slots"] <= \
+            new["slots_built"] <= first["slots_built"]
+        assert new["popcounts"] < first["popcounts"]
+        assert new["table_rows_read"] < first["table_rows_read"]
+        assert new["tasks_block"] + new["tasks_warp"] == new["tasks"]
+        assert new["block_items"] > 0 and c["work"]["plan_ms"] > 0
+    assert out["calls"][0]["work"]["built"]["slots_built"] == \
+        out["calls"][0]["work"]["built"]["distinct_slots"]

@@ -1154,6 +1154,58 @@ def test_house_t3_launches_nothing_without_work(dev):
     assert cuda_house.house_t3.launches == n0
 
 
+@pytest.mark.parametrize("order", ["runs", "long", "runs_of_1"])
+def test_house_t3_view_and_plans(dev, order):
+    """A graph-like table (sorted rows, the core table of their suffixes):
+    H with the sparse view and without it, over a plan built before the
+    call and over the wrapper's own, and over plans of block items alone
+    and of warp items alone, == plain; one launch a call."""
+    rng = np.random.default_rng(len(order))
+    v, c = 6000, 1024
+    cs = v - c
+    rows = [np.unique(np.concatenate([rng.integers(0, v, d),
+                                      rng.integers(cs, v, d)]))
+            for d in rng.integers(0, 200, v)]
+    for x in rng.choice(v, 4, replace=False):
+        rows[x] = np.unique(rng.integers(0, v, 5000))
+    rowptr = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    colidx = np.concatenate(rows).astype(np.int32)
+    src = np.repeat(np.arange(v), np.diff(rowptr))
+    core = colidx >= cs
+    tab = np.zeros((v, c // 32), dtype=np.uint32)
+    cc = colidx[core].astype(np.int64) - cs
+    np.bitwise_or.at(tab, (src[core], cc >> 5),
+                     np.uint32(1) << (cc & 31).astype(np.uint32))
+    nbc = np.bincount(src[core], minlength=v).astype(np.int32)
+    deg = np.diff(rowptr)
+    ftw = np.where(rng.random(v) < 0.5, deg, rng.integers(0, deg + 2))
+    n = 60000
+    if order == "long":
+        a = np.repeat(np.argsort(-deg)[:10], n // 10)
+    elif order == "runs":
+        a = np.sort(rng.integers(0, v, n))
+    else:
+        a = np.resize(np.arange(v), n)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(
+        x, dtype=np.int32)).to(dev)
+    ft = cuda_tri.FtLists.from_csr(rowptr, colidx, ftw, dev)
+    args = (ft, t(tab.view(np.int32)), t(a), t(rng.integers(0, v, n)))
+    view = cuda_house.HouseView(nbc=t(nbc), cs=cs)
+    plan = cuda_house.plan_house(*args[:3], view)
+    want = cuda_house.house_t3_plain(*args)
+    n0 = cuda_house.house_t3.launches
+    for kw in (dict(view=view, plan=plan), dict(view=view), dict(plan=plan),
+               {}):
+        assert torch.equal(cuda_house.house_t3(*args, **kw), want)
+    assert cuda_house.house_t3.launches == n0 + 4
+    entry = cuda_house._build.entry("gm_house_t3")
+    for sparse in (-1, 1 << 20):
+        one = cuda_house.plan_house(*args[:3], view, sparse=sparse)
+        for v_ in (view, None):
+            assert torch.equal(cuda_house.launch(entry, *args, v_, one), want)
+    assert want.any()
+
+
 @pytest.mark.parametrize("core", [64, 4096])
 def test_house_on_card(dev, core):
     """rmat(10, 8, seed=5): T3 and the house count on the card equal the

@@ -539,114 +539,363 @@ def test_tri_lists_long_lists_and_ids_outside():
                       ((cuda_tri.I_LANES, cuda_tri.I_IDS),))
 
 
-# --- H: per-edge 3-walk support over per-run column counts ---------------
+# --- H: per-edge 3-walk support over per-list column counts -------------
 #
 # house_t3(ft, tab, a, b)[t] = Σ_{x ∈ L(a_t)} popcount(tab[x] & tab[b_t]).
-# The plain version against a numpy definition, a numpy model of the
-# kernel's walk over plan_house's items (C_a bit-sliced in planes, pieces
-# and segments cut small so that runs and lists split), the two calls of
-# the house engine against JAX's _t3_edges, and house_bytes.
+# The plain version against a numpy definition; a numpy model of the
+# kernel's walk (csrc/house_t3.cu) over plan_house's items: block items
+# with whole-list int32 counts (rows by the view's ids, or without the view
+# by their table rows' bits), each task dotted once over its ids or its
+# row's bits; warp items with counts in planes and the carry-save plane
+# dot; with and without the sparse view, the default plan, small cuts and
+# plans of one kind, shuffled items; the plan's cover of every (task, list
+# slot) pair and its density threshold at and on both sides of a list's
+# average; the two calls of the house engine against JAX's _t3_edges, and
+# house_bytes.
 
-def house_csr(rng, v, max_deg, n_long=0):
+def house_csr(rng, v, max_deg, n_long=0, long_len=(1100, 1500)):
     """Rows with ids outside [0, v) (negative, v and above, SENTINEL),
-    n_long rows of 1,100-1,500 slots (longer than cuda_house.SEG), ftw in
-    [-1, deg + 2] with some lists empty."""
+    n_long rows of long_len slots, ftw in [-1, deg + 2] with some lists
+    empty."""
     deg = rng.integers(0, max_deg + 1, v)
-    deg[rng.choice(v, n_long, replace=False)] = rng.integers(1100, 1500,
+    deg[rng.choice(v, n_long, replace=False)] = rng.integers(*long_len,
                                                              n_long)
     colidx = rng.integers(-3, v + 3, int(deg.sum())).astype(np.int32)
     colidx[::97] = SENTINEL
     ftw = rng.integers(-1, deg + 3).astype(np.int32)
     ftw[::13] = 0
+    ftw[np.argsort(-deg)[:n_long]] = deg[np.argsort(-deg)[:n_long]]
     return np.concatenate([[0], np.cumsum(deg)]).astype(np.int64), colidx, ftw
 
 
 def house_definition(rowptr, colidx, ftw, tab, a, b):
     """Σ over x in L(a_t) (ids in [0, V)) of popcount(tab[x] & tab[b_t]),
-    int64, task by task."""
+    int64, task by task: the bits of tab[b_t] times the column sums of the
+    rows of L(a_t), each list's summed once."""
     v = tab.shape[0]
     bits = np.unpackbits(tab.view(np.uint8), axis=1).astype(np.int64)
     out = np.zeros(a.size, dtype=np.int64)
+    sums = {}
     for i, (x0, y) in enumerate(zip(a, b)):
         if not (0 <= x0 < v and 0 <= y < v):
             continue
-        n = max(0, min(int(ftw[x0]), int(rowptr[x0 + 1] - rowptr[x0])))
-        xs = colidx[rowptr[x0]:rowptr[x0] + n]
-        xs = xs[(xs >= 0) & (xs < v)]
-        out[i] = int((bits[xs] & bits[y]).sum())
+        if x0 not in sums:
+            n = max(0, min(int(ftw[x0]), int(rowptr[x0 + 1] - rowptr[x0])))
+            xs = colidx[rowptr[x0]:rowptr[x0] + n]
+            sums[x0] = bits[xs[(xs >= 0) & (xs < v)]].sum(axis=0)
+        out[i] = int(bits[y] @ sums[x0])
     return out
 
 
-def model_house(ft, rowptr, colidx, tab, a, b, piece, seg):
-    """Kernel H's walk (csrc/house_t3.cu) in numpy over plan_house(ft, a,
-    piece, seg): an item's segment counted into bit planes (each count below
-    2^11), each task of its piece dotted as Σ_i 2^i popcount(p_i & w) and
-    added into out. Also returns the items."""
-    from graphminer_tpu_torch.ops.cuda_house import plan_house
-    v = tab.shape[0]
-    items = plan_house(ft, t(a), piece, seg).numpy()
-    bits = np.unpackbits(tab.view(np.uint8), axis=1).astype(np.int64)
+def column_bits(tab):
+    """int64 [V, 32 words]: column c of row x is bit c % 32 of word c // 32."""
+    return np.unpackbits(np.ascontiguousarray(tab).view(np.uint8), axis=1,
+                         bitorder="little").astype(np.int64)
+
+
+def csa(a, b, c):
+    u = a ^ b
+    return (a & b) | (u & c), u ^ c
+
+
+def plane_dot(cnt, w, np_):
+    """The kernel's carry-save plane dot (csrc/house_t3.cu::chunk_dot) of
+    the counts cnt (int64 [32 words]) against rows w (uint32 [m, words]):
+    planes i < np_ of the counts, each lane's four words and the three
+    carries from the plane below reduced to one word a plane, summed over
+    the lanes. int64 [m]."""
+    m, words = w.shape
+    assert cnt.max(initial=0) < 1 << np_
+    if m == 0:
+        return np.zeros(0, dtype=np.int64)
+    bc = lambda x: np.bitwise_count(x).astype(np.int64)
+    s = np.zeros((m, words // 4), dtype=np.int64)
+    c0 = c1 = c2 = np.zeros((m, words // 4), dtype=np.uint32)
+    for i in range(np_):
+        p = np.packbits(((cnt >> i) & 1).astype(np.uint8),
+                        bitorder="little").view(np.uint32)
+        x = (p[None, :] & w).reshape(m, -1, 4)
+        h1, l1 = csa(x[..., 0], x[..., 1], x[..., 2])
+        h2, l2 = csa(x[..., 3], c0, c1)
+        h3, l3 = csa(l1, l2, c2)
+        s += bc(l3) << i
+        c0, c1, c2 = h1, h2, h3
+    s += (bc(c0) + bc(c1) + bc(c2)) << np_
+    return s.sum(axis=1)
+
+
+def model_house(tab, rowptr, colidx, ftw, a, b, plan, view=None):
+    """Kernel H's walk in numpy over plan = (items, n_block), a stretch of
+    128 words at a time. A block item: int32 counts of its whole list, each
+    row adding its columns, by the view's ids with the view, else by its
+    table row's bits; then each task dotted once, summing the counts at its
+    view ids or, without the view, at its row's set bits. A warp item: the
+    counts in planes (below 2^11), every task by the carry-save plane dot.
+    view = (nbc, cs) or None."""
+    items, n_block = plan
+    v, words = tab.shape
+    bits = column_bits(tab)
+    uw = tab.view(np.uint32)
     out = np.zeros(a.size, dtype=np.int64)
-    for t0, nt, s0, ns in items:
-        assert 1 <= ns <= seg and 1 <= nt <= piece
-        assert (a[t0:t0 + nt] == a[t0]).all()
-        xs = colidx[rowptr[a[t0]] + s0:rowptr[a[t0]] + s0 + ns]
-        cnt = bits[xs[(xs >= 0) & (xs < v)]].sum(axis=0)
-        assert cnt.max(initial=0) < 1 << 11
-        planes = (cnt[None, :] >> np.arange(11)[:, None]) & 1
-        for i in range(t0, t0 + nt):
-            if 0 <= b[i] < v:
-                out[i] += int(((planes & bits[b[i]]).sum(axis=1)
-                               << np.arange(11)).sum())
-    return out, items
+    nbc, cs = view if view is not None else (None, 0)
+
+    def suffix(ys, col0, cols):
+        """(row index, column) of the view's ids of rows ys in the
+        stretch."""
+        k = nbc[ys]
+        j = np.repeat(np.arange(ys.size), k)
+        pos = np.repeat(rowptr[ys + 1] - k, k) + np.arange(j.size) - \
+            np.repeat(np.cumsum(k) - k, k)
+        c = colidx[pos].astype(np.int64) - cs - col0
+        ok = (c >= 0) & (c < cols)
+        return j[ok], c[ok]
+
+    for idx, (t0, nt, s0, ns) in enumerate(items.astype(np.int64)):
+        x0 = a[t0]
+        assert 0 <= x0 < v and (a[t0:t0 + nt] == x0).all()
+        ln = min(max(int(ftw[x0]), 0), int(rowptr[x0 + 1] - rowptr[x0]))
+        assert ns >= 1 and s0 + ns <= ln
+        xs = colidx[rowptr[x0] + s0:rowptr[x0] + s0 + ns].astype(np.int64)
+        xs = xs[(xs >= 0) & (xs < v)]
+        ys = b[t0:t0 + nt].astype(np.int64)
+        tv = np.flatnonzero((ys >= 0) & (ys < v))
+        ys = ys[tv]
+        for q0 in range(0, words, 128):
+            col0, cols = 32 * q0, 32 * min(128, words - q0)
+            sl = slice(col0, col0 + cols)
+            if idx >= n_block:
+                assert ns < 1 << 11
+                cnt = bits[xs, sl].sum(axis=0)
+                out[t0 + tv] += plane_dot(cnt, uw[ys, q0:q0 + cols // 32],
+                                          int(ns).bit_length())
+                continue
+            if view is None:
+                cnt = bits[xs, sl].sum(axis=0)
+                out[t0 + tv] += bits[ys, sl] @ cnt
+                continue
+            cnt = np.zeros(cols, dtype=np.int64)
+            np.add.at(cnt, suffix(xs, col0, cols)[1], 1)
+            j, c = suffix(ys, col0, cols)
+            np.add.at(out, t0 + tv[j], cnt[c])
+    return out
+
+
+def house_plan(rowptr, colidx, ftw, tab, a, view=None, **kw):
+    """plan_house over numpy inputs on the CPU: (items, n_block,
+    longest)."""
+    from graphminer_tpu_torch.ops import cuda_house as ch
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    hv = None if view is None else ch.HouseView(t(view[0]), view[1])
+    plan = ch.plan_house(ft, t(tab), t(a), hv, **kw)
+    assert plan.n_tasks == a.size and plan.items.dtype == torch.int32
+    return plan.items.numpy(), plan.n_block, plan.longest
+
+
+#: small cuts: warp and block pieces, warp items for lists whose rows hold
+#: more than 6 set bits on average, segments of 40 slots
+SMALL_CUT = dict(piece=37, block_piece=53, warp_seg=40, sparse=6)
 
 
 HOUSE_CASES = (("long_runs", 8, 0), ("runs_of_1", 4, 0),
-               ("unsorted", 12, 0), ("window_edges", 8, 3))
+               ("unsorted", 12, 0), ("window_edges", 8, 3),
+               ("long_lists", 8, 6))
+
+
+def house_case(order, w, n_long):
+    """(tab, rowptr, colidx, ftw, a, b) of a HOUSE_CASES case: bit 31 in
+    every word, a third of the rows sparse (at most ~3 set bits a word);
+    "long_lists" has lists of 2,000-5,000 ids and runs of 1,100-1,600
+    tasks (longer than a piece) on them."""
+    rng = np.random.default_rng(w + n_long)
+    v = 400
+    tab = bit31_table(rng, v, w)
+    sparse = rng.random(v) < 1 / 3
+    tab[sparse] &= words(rng, int(sparse.sum()), w) & \
+        words(rng, int(sparse.sum()), w) & words(rng, int(sparse.sum()), w)
+    long_len = (2000, 5001) if order == "long_lists" else (1100, 1500)
+    rowptr, colidx, ftw = house_csr(rng, v, 60, n_long, long_len)
+    if order == "long_lists":
+        lens = rng.integers(1100, 1601, 3)
+        a = np.repeat(np.argsort(-np.diff(rowptr))[:3], lens)
+        a = np.concatenate([a, ordered_ids(rng, "window_edges", v, 1500)])
+        a = a.astype(np.int32)
+    else:
+        a = ordered_ids(rng, order, v, 3000)
+    b = ordered_ids(rng, "unsorted", v, a.size)
+    return tab, rowptr, colidx, ftw, a, b
 
 
 @pytest.mark.parametrize("order,w,n_long", HOUSE_CASES)
 def test_house_t3_plain_equals_definition(order, w, n_long):
     """The plain version and the kernel's walk against the definition:
-    bit 31 in every word, ids outside [0, V) as a, as b and in the lists,
-    empty lists, runs of 1, runs longer than a piece, no order, and lists
-    longer than a segment (the default plan and a small one)."""
+    bit 31 in every word, sparse and dense rows, ids outside [0, V) as a,
+    as b and in the lists, empty lists, runs of 1, runs longer than a
+    piece, no order, lists longer than the first design's segments; the
+    default plan, small cuts and plans of block or warp items alone."""
     from graphminer_tpu_torch.ops import cuda_house
-    rng = np.random.default_rng(w + n_long)
-    v = 400
-    tab = bit31_table(rng, v, w)
-    rowptr, colidx, ftw = house_csr(rng, v, 60, n_long)
+    tab, rowptr, colidx, ftw, a, b = house_case(order, w, n_long)
     ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
-    a = ordered_ids(rng, order, v, 3000)
-    b = ordered_ids(rng, "unsorted", v, 3000)
     want = house_definition(rowptr, colidx, ftw, tab, a, b)
     got = cuda_house.house_t3(ft, t(tab), t(a), t(b))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
     assert want.max() > 0 and (want == 0).any()
-    for piece, seg in ((cuda_house.PIECE, cuda_house.SEG), (37, 20)):
-        got, items = model_house(ft, rowptr, colidx, tab, a, b, piece, seg)
-        assert np.array_equal(got, want)
-    assert (items[:, 2] > 0).any() or (items[:, 1] == 37).any()  # cut
+    kinds = set()
+    for kw in ({}, SMALL_CUT, dict(sparse=-1), dict(sparse=1 << 20)):
+        items, n_block, _ = house_plan(rowptr, colidx, ftw, tab, a, **kw)
+        got = model_house(tab, rowptr, colidx, ftw, a, b, (items, n_block))
+        assert np.array_equal(got, want), kw
+        kinds |= {"block"} if n_block else set()
+        kinds |= {"warp"} if n_block < items.shape[0] else set()
+        if order == "long_lists" and kw.get("sparse") == 1 << 20:
+            assert (items[:, 3] > 1024).any() and \
+                (items[:, 1] > cuda_house.PIECE).any()
+    assert kinds == {"block", "warp"}
+
+
+def house_view_case(seed, v=3000, c=256, n_long=8):
+    """A graph-like CSR (sorted rows without repeats, n_long rows of
+    1,000-2,500 ids) and its core bitmap table, whose row x is the ids >= cs
+    of row x less cs: (tab, rowptr, colidx, ftw, nbc, cs)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 80, v)
+    deg[rng.choice(v, n_long, replace=False)] = rng.integers(1000, 2500,
+                                                             n_long)
+    hot = np.arange(v - c, v)
+    rows = [np.unique(np.concatenate([rng.choice(v, d, replace=False),
+                                      rng.choice(hot, d // 3)]))
+            for d in deg]
+    rowptr = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    colidx = np.concatenate(rows).astype(np.int32)
+    cs = v - c
+    src = np.repeat(np.arange(v), np.diff(rowptr))
+    core = colidx >= cs
+    tab = np.zeros((v, c // 32), dtype=np.uint32)
+    cc = colidx[core].astype(np.int64) - cs
+    np.bitwise_or.at(tab, (src[core], cc >> 5),
+                     np.uint32(1) << (cc & 31).astype(np.uint32))
+    nbc = np.bincount(src[core], minlength=v).astype(np.int32)
+    deg = np.diff(rowptr)
+    ftw = np.where(rng.random(v) < 0.5, deg, rng.integers(-1, deg + 3))
+    return (tab.view(np.int32), rowptr.astype(np.int64), colidx,
+            ftw.astype(np.int32), nbc, cs)
+
+
+@pytest.mark.parametrize("seed,v,c", [(0, 3000, 256), (1, 8000, 5120)])
+def test_house_t3_model_with_view(seed, v, c):
+    """With the sparse view (a table made from the CSR's core suffixes, 8
+    or 160 words: two stretches): the plain version, and the walk with the
+    view and without it, equal the definition, over the view's plan and
+    the popcounts', at small cuts, the default and plans of one kind."""
+    from graphminer_tpu_torch.ops import cuda_house
+    tab, rowptr, colidx, ftw, nbc, cs = house_view_case(seed, v, c)
+    v = tab.shape[0]
+    rng = np.random.default_rng(seed + 10)
+    a = ordered_ids(rng, "long_runs", v, 2500)
+    b = ordered_ids(rng, "unsorted", v, a.size)
+    assert np.array_equal(column_bits(tab).sum(1), nbc)
+    ft = FtLists.from_csr(rowptr, colidx, ftw, "cpu")
+    want = house_definition(rowptr, colidx, ftw, tab, a, b)
+    got = cuda_house.house_t3(ft, t(tab), t(a), t(b),
+                              view=cuda_house.HouseView(t(nbc), cs))
+    assert np.array_equal(got.numpy(), want) and want.max() > 0
+    for kw in (SMALL_CUT, {}, dict(sparse=-1), dict(sparse=1 << 20)):
+        for view in ((nbc, cs), None):
+            items, n_block, _ = house_plan(rowptr, colidx, ftw, tab, a,
+                                           view, **kw)
+            for model_view in ((nbc, cs), None):
+                got = model_house(tab, rowptr, colidx, ftw, a, b,
+                                  (items, n_block), model_view)
+                assert np.array_equal(got, want), (kw, view, model_view)
+    assert nbc.max() > 128 and np.median(nbc) < 64
+
+
+def test_house_plan_covers_each_pair_once():
+    """plan_house covers each (task, list slot) pair exactly once, at the
+    default cut and small ones, tasks with an empty list not at all; its
+    items are pieces of one run, block items first, each kind heaviest
+    first, a list's items block items exactly when its rows' set bits are
+    at most LIST_SPARSE times its length (the threshold set at a list's
+    average and on either side of it); the kernel's walk over shuffled
+    items or other cuts gives the same result."""
+    from graphminer_tpu_torch.ops import cuda_house
+    tab, rowptr, colidx, ftw, a, b = house_case("long_lists", 8, 6)
+    v = tab.shape[0]
+    ok = (a >= 0) & (a < v)
+    x = np.where(ok, a, 0)
+    ln = np.where(ok, np.minimum(np.clip(ftw[x], 0, None),
+                                 rowptr[x + 1] - rowptr[x]), 0)
+    want = house_definition(rowptr, colidx, ftw, tab, a, b)
+    rng = np.random.default_rng(3)
+    pc = column_bits(tab).sum(1)
+    row_sum = {}                                 # each list's set bits
+    for x0, k in zip(x, ln):
+        if (x0, k) not in row_sum:
+            xs = colidx[rowptr[x0]:rowptr[x0] + k]
+            row_sum[x0, k] = int(pc[xs[(xs >= 0) & (xs < v)]].sum())
+    dsum = np.array([row_sum[x0, k] for x0, k in zip(x, ln)])
+    j = np.flatnonzero((ln > 0) & (dsum % np.maximum(ln, 1) == 0))[0]
+    avg = int(dsum[j] // ln[j])                  # a list's exact average
+    for kw in ({}, SMALL_CUT, dict(piece=1, block_piece=2, warp_seg=3),
+               dict(sparse=-1), dict(sparse=1 << 20), dict(sparse=avg),
+               dict(sparse=avg - 1), dict(sparse=avg + 1)):
+        items, n_block, longest = house_plan(rowptr, colidx, ftw, tab, a,
+                                             **kw)
+        assert longest == ln.max()
+        sparse = kw.get("sparse", cuda_house.LIST_SPARSE)
+        first = items[:, 0]
+        assert np.array_equal(np.arange(items.shape[0]) < n_block,
+                              dsum[first] <= sparse * ln[first]), kw
+        assert (items[n_block:, 3] <= kw.get("warp_seg",
+                                              cuda_house.WARP_SEG)).all()
+        assert np.array_equal(items[:n_block, 3], ln[first[:n_block]])
+        cover = np.zeros((a.size, int(ln.max())), dtype=np.int32)
+        for t0, nt, s0, ns in items:
+            assert (a[t0:t0 + nt] == a[t0]).all() and nt >= 1 and ns >= 1
+            cover[t0:t0 + nt, s0:s0 + ns] += 1
+        assert np.array_equal(cover, (np.arange(cover.shape[1])[None, :] <
+                                      ln[:, None]).astype(np.int32)), kw
+        weight = items[:, 1].astype(np.int64) + items[:, 3]
+        for part in (weight[:n_block], weight[n_block:]):
+            assert (np.diff(part) <= 0).all()
+        if kw is SMALL_CUT or kw.get("piece") == 1 or "sparse" in kw and \
+                abs(kw["sparse"] - avg) <= 1:
+            continue                       # the walk's cuts: other tests
+        perm = np.concatenate([rng.permutation(n_block),
+                               n_block + rng.permutation(items.shape[0] -
+                                                         n_block)])
+        got = model_house(tab, rowptr, colidx, ftw, a, b,
+                          (items[perm], n_block))
+        assert np.array_equal(got, want), kw
 
 
 def test_house_t3_empty_and_bounds():
-    """No task: an empty result; every list empty: zeros; a call whose
-    longest list times 32 words could pass int32 is refused."""
+    """No task: an empty result and plan; every list empty: zeros and no
+    item; a call whose longest list times 32 words could pass int32 is
+    refused; a plan of another call and a view of another shape too."""
     from graphminer_tpu_torch.ops import cuda_house
     _, tab, rowptr, colidx, ftw, ft = fixture(3)
     e = t(np.zeros(0, np.int32))
+    n0 = cuda_house.house_t3.launches
     assert cuda_house.house_t3(ft, t(tab), e, e).shape == (0,)
-    assert cuda_house.plan_house(ft, e).shape == (0, 4)
+    assert cuda_house.plan_house(ft, t(tab), e).items.shape == (0, 4)
     ft0 = FtLists.from_csr(rowptr, colidx, np.zeros_like(ftw), "cpu")
     ids = t(np.arange(ftw.size))
     assert not cuda_house.house_t3(ft0, t(tab), ids, ids).any()
-    assert cuda_house.plan_house(ft0, ids).shape == (0, 4)
+    plan = cuda_house.plan_house(ft0, t(tab), ids)
+    assert plan.items.shape == (0, 4) and plan.longest == 0
     big = FtLists(rowptr=torch.tensor([0, 1 << 24], dtype=torch.int64),
                   colidx=torch.zeros(1 << 24, dtype=torch.int32),
                   ftw=torch.tensor([1 << 24], dtype=torch.int32))
     with pytest.raises(ValueError):
         cuda_house.house_t3(big, torch.zeros((1, 8), dtype=torch.int32),
                             t([0]), t([0]))
+    with pytest.raises(ValueError):
+        cuda_house.house_t3(ft0, t(tab), ids, ids, plan=cuda_house.plan_house(
+            ft0, t(tab), ids[:3]))
+    with pytest.raises(ValueError):
+        cuda_house.house_t3(ft0, t(tab), ids, ids, view=cuda_house.HouseView(
+            t(np.zeros(3)), 0))
+    assert cuda_house.house_t3.launches == n0          # the CPU launches none
 
 
 def test_house_calls_equal_jax_t3_edges():
