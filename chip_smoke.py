@@ -54,8 +54,9 @@ fails (non-zero exit, no result line) when any phase fails:
      m3b, and of R and torch.mul,
      failing unless a D call and a window_count call each run one kernel
      and no other device op (a device time that torch.profiler recorded
-     no event for in three readings is "not measured", null in the
-     kernels line, and only the launch counts are held); and R's host
+     no event for, or fewer than 0.9 of the kernel's events a call, in
+     three readings is "not measured", null in the kernels line, and only
+     the launch counts are held); and R's host
      time a call, split into the
      parts of its wrapper's path (host clock over 10,000 calls);
   8. runs the hybrid engine (ring phase C + sub-core stream) on rmat18:
@@ -135,13 +136,27 @@ fails (non-zero exit, no result line) when any phase fails:
      against their goldens (B and C; S, P, I, G, L and W's pairs mode once
      each), motif 4 --fast == generic at rmat12, sc hourglass and diamond
      at rmat12 against tri_support's formulas, and motif 5 at rmat10 (its
-     5clique against clique 5).
+     5clique against clique 5);
+ 17. runs the labelled workloads, which launch no kernel of ours (each
+     run fails if one launched): FSM on rmat(14, 8, seed=7) labelled by
+     default_rng(7).integers(1, 5) at k = 2 against its goldens (50 at
+     minsup 300, BENCH_r05.json; 11 at minsup 1500, the JAX package on the
+     CPU) with its extensions, host syncs, overflow retries and phase
+     seconds; every evaluated pattern's MNI support on the card equal to
+     the CPU's on the same labelled rmat12 (k = 2, minsup 100) and on an
+     edge-labelled ER graph (k = 3); the query 1,2,3,4:0-1,1-2,0-2,2-3 on
+     the labelled rmat14, filtered == unfiltered on the card == the CPU;
+     GKS k = 3, keywords 1,2,3 on the labelled rmat11, card == CPU; and the
+     CLI's fsm, gks and query on the card on the labelled rmat11 saved with
+     vertex and edge labels, against the CPU's counts, with no launch
+     (--profile's kernel_launches all 0). Each count prints its seconds.
 
-Each path of phases 2, 4-6, 8 and 12-16 runs with every launch count set to
+Each path of phases 2, 4-6, 8 and 12-17 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
-"device": {...}}. The rmat10, rmat12, rmat14, rmat18 and rmat20 graphs are
-written under the git-ignored graph_cache/ directory.
+"device": {...}}. The rmat10, rmat12, rmat14, rmat18 and rmat20 graphs and
+the labelled rmat11 are written under the git-ignored graph_cache/
+directory.
 """
 import json
 import os
@@ -1292,10 +1307,12 @@ def device_ms(fn, kernel=None, calls=200):
     wrappers' launch counts rose by exactly one for each fn() call, so a
     call that launched nothing fails. The profiler can miss events at the
     edge of its window: a reading with fewer than 0.9 kernel events a call
-    is taken again, DEVICE_READS readings in all. When CUPTI hands the
-    profiler no device event at all (utils/profiling.py::device_ms reads
-    again before it gives up), the device time is not measured: None, and
-    only the launch counts are held."""
+    is taken again, DEVICE_READS readings in all. When every reading falls
+    short, or CUPTI hands the profiler no device event at all
+    (utils/profiling.py::device_ms reads again before it gives up), the
+    device time is not measured: None, and only the launch counts are held
+    (with the check that a call ran no other device op, wherever events
+    came)."""
     from graphminer_tpu_torch.utils.profiling import device_ms as profiled
 
     def alone(f, n):
@@ -1334,8 +1351,10 @@ def device_ms(fn, kernel=None, calls=200):
         say(f"torch.profiler recorded {rate} {kernel} events a call "
             "(fewer than 0.9) while the wrapper counted one launch a call:"
             " reading again")
-    check(False, f"torch.profiler recorded {rate} {kernel} events a call "
-          f"in each of {DEVICE_READS} readings")
+    say(f"device time not measured: torch.profiler recorded fewer than 0.9 "
+        f"{kernel} events a call in each of {DEVICE_READS} readings (the "
+        f"last {rate}); the wrapper counted one launch a call in each")
+    return None
 
 
 def r_host_split(calls=10_000):
@@ -2945,11 +2964,11 @@ def h_timing(calls, g18):
     return res
 
 
-def cli_json(args, scale):
-    """`python -m graphminer_tpu_torch <args>` on rmat<scale> on CUDA with
-    --json --profile, run in this process (its main(), every launch count
-    at 0 before it, so the launches it reports are its own): its result,
-    after checking it ran on the card."""
+def cli_json(args, scale, prefix=None):
+    """`python -m graphminer_tpu_torch <args>` on rmat<scale> (or the graph
+    at `prefix`) on CUDA with --json --profile, run in this process (its
+    main(), every launch count at 0 before it, so the launches it reports
+    are its own): its result, after checking it ran on the card."""
     import contextlib
     import io
     from graphminer_tpu_torch.__main__ import main as cli
@@ -2957,8 +2976,8 @@ def cli_json(args, scale):
     reset_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli([args[0], graph_prefix(scale), *args[1:], "--json",
-                  "--profile"])
+        rc = cli([args[0], prefix or graph_prefix(scale), *args[1:],
+                  "--json", "--profile"])
     check(rc == 0, f"CLI {args} returned {rc}")
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
     check(res["profile"]["device"] == "cuda",
@@ -3064,6 +3083,135 @@ def run_house(g18):
     return {"house_t3": res}, {"house_t3": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the labelled workloads (FSM, query, GKS)
+# --------------------------------------------------------------------------
+
+#: labelled rmat(14, 8, seed=7) frequent patterns at k = 2 by minsup: 50
+#: (BENCH_r05.json fsm_rmat14_k2_ms300_frequent; with 4 labels the most
+#: k = 2 allows) and 11 (the JAX package on the CPU)
+GOLDEN_FSM14 = {300: 50, 1500: 11}
+#: the phase's query: a triangle 1-2-3 with a tail 3-4 (vertex labels)
+QUERY17 = "1,2,3,4:0-1,1-2,0-2,2-3"
+
+
+def no_launches(label, fn):
+    """fn() with every launch count at 0 before it; fails if it launched a
+    kernel of ours. Returns (fn's result, host seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    val = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: n for k, n in read_counts().items() if n}
+    check(not launched, f"{label}: launched {launched}")
+    return val, dt
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
+def fsm_supports(g, minsup, k, device):
+    """(frequent patterns, {canonical key: MNI support} of every pattern
+    the search evaluated)."""
+    from graphminer_tpu_torch.workloads import fsm
+    f = fsm._FSM(g, minsup, device=device)
+    return f.run(k), f.supports
+
+
+def run_labelled():
+    """Phase 17: FSM, query and GKS on the card (see the module docstring).
+    No kernel of ours runs here, so it adds no line to the kernels JSON."""
+    import dataclasses
+    from graphminer_tpu_torch.io.loader import save_graph
+    from graphminer_tpu_torch.io.synth import labeled_er
+    from graphminer_tpu_torch.scripts.prof_fsm import labelled_rmat
+    from graphminer_tpu_torch.utils.profiling import PROFILER
+    from graphminer_tpu_torch.workloads import fsm, keyword, query
+    t_phase = time.perf_counter()
+    g14 = labelled_rmat(14)
+    for minsup, want in GOLDEN_FSM14.items():
+        PROFILER.seconds.clear()
+        PROFILER.counters.clear()
+        got, dt = no_launches(f"fsm rmat14 minsup {minsup}", lambda: (
+            fsm.fsm_count(g14, 2, minsup, device="cuda")))
+        check(got == want, f"fsm rmat14 k = 2 minsup {minsup}: {got} != "
+              f"{want}")
+        c = PROFILER.counters
+        check(c["fsm_overflow_retries"] == 0,
+              f"fsm rmat14 minsup {minsup}: {c['fsm_overflow_retries']} "
+              "overflow retries past the label bound")
+        say(f"[{CARD}] fsm labelled rmat14 k = 2 minsup {minsup}: {got} "
+            f"frequent in {dt:.3f} s (host clock); {c['fsm_extensions']} "
+            f"extensions, {c.get('fsm_filters', 0)} filters, "
+            f"{c['fsm_host_syncs']} host syncs, "
+            f"{c['fsm_overflow_retries']} overflow retries; phases "
+            f"{ {k: round(v, 4) for k, v in PROFILER.seconds.items()} }")
+
+    g12 = labelled_rmat(12)
+    ger = labeled_er(300, 0.03, n_vlabels=3, n_elabels=2, seed=4)
+    for label, g, minsup, k in (("labelled rmat12", g12, 100, 2),
+                                ("edge-labelled ER(300, 0.03)", ger, 5, 3)):
+        card, dt = no_launches(f"fsm {label}",
+                               lambda: fsm_supports(g, minsup, k, "cuda"))
+        cpu, dt_cpu = timed(lambda: fsm_supports(g, minsup, k, "cpu"))
+        check(card == cpu and card[0] > 0,
+              f"fsm {label}: card {card[0]} != CPU {cpu[0]} or their "
+              "supports differ")
+        say(f"[{CARD}] fsm {label} k = {k} minsup {minsup}: {card[0]} "
+            f"frequent, {len(card[1])} supports == CPU; card {dt:.3f} s, "
+            f"CPU {dt_cpu:.3f} s")
+
+    labs, _, edges = QUERY17.partition(":")
+    q = query.make_query([tuple(int(x) for x in e.split("-"))
+                          for e in edges.split(",")],
+                         [int(x) for x in labs.split(",")])
+    filt, dt_f = no_launches("query rmat14", lambda: query.query_count(
+        g14, q, device="cuda"))
+    unf, dt_u = no_launches("query rmat14 unfiltered", lambda: (
+        query.query_count(g14, q, use_filter=False, device="cuda")))
+    cpu, dt_cpu = timed(lambda: query.query_count(g14, q, device="cpu"))
+    check(filt == unf == cpu > 0,
+          f"query rmat14: filtered {filt}, unfiltered {unf}, CPU {cpu}")
+    say(f"[{CARD}] query {QUERY17} labelled rmat14: {filt} (card "
+        f"{dt_f:.3f} s filtered, {dt_u:.3f} s unfiltered; CPU {dt_cpu:.3f} "
+        "s)")
+
+    g11 = labelled_rmat(11)
+    gks, dt = no_launches("gks rmat11", lambda: keyword.gks_count(
+        g11, 3, (1, 2, 3), device="cuda"))
+    gks_cpu, dt_cpu = timed(lambda: keyword.gks_count(g11, 3, (1, 2, 3),
+                                                      device="cpu"))
+    check(gks == gks_cpu > 0, f"gks rmat11: card {gks} != CPU {gks_cpu}")
+    say(f"[{CARD}] gks k = 3 keywords 1,2,3 labelled rmat11: {gks} (card "
+        f"{dt:.3f} s, CPU {dt_cpu:.3f} s)")
+
+    # the CLI on the card, on rmat11 saved with vertex and edge labels
+    src = np.repeat(np.arange(g11.n_vertices), np.diff(g11.rowptr))
+    lo = np.minimum(src, g11.colidx).astype(np.int64)
+    hi = np.maximum(src, g11.colidx).astype(np.int64)
+    g11e = dataclasses.replace(
+        g11, elabels=((lo * 7 + hi * 3) % 2).astype(np.uint16))
+    prefix = os.path.join(REPO, "graph_cache", "rmat11_labelled", "graph")
+    save_graph(g11e, prefix)
+    want = {"fsm": fsm.fsm_count(g11e, 2, 100, device="cpu"), "gks": gks,
+            "query": query.query_count(g11, q, device="cpu")}
+    for args in (("fsm", "2", "100"), ("gks", "3", "1,2,3"),
+                 ("query", QUERY17)):
+        res = cli_json(args, 11, prefix=prefix)
+        check(res["total"] == want[args[0]],
+              f"CLI {args[0]}: {res['total']} != {want[args[0]]}")
+        check(not any(res["profile"]["kernel_launches"].values()),
+              f"CLI {args[0]}: launches {res['profile']['kernel_launches']}")
+        if args[0] == "fsm":
+            check(res["profile"]["counters"]["fsm_overflow_retries"] == 0,
+                  f"CLI fsm: {res['profile']['counters']}")
+    torch.cuda.empty_cache()
+    say(f"phase 17 (fsm, query, gks): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     check_environment()
     build_kernels()
@@ -3111,6 +3259,7 @@ def main():
     house_res, house_launches = run_house(g)
     res.update(house_res)
     launches.update(house_launches)
+    run_labelled()
     for part in (ck_launches, big_launches):   # G: the hub-core count's too
         for key, n in part.items():
             launches[key] = launches.get(key, 0) + n

@@ -5,9 +5,12 @@
     python -m graphminer_tpu_torch sgl <graph_prefix> diamond
     python -m graphminer_tpu_torch motif <graph_prefix> 4 [--fast]
     python -m graphminer_tpu_torch sc <graph_prefix> hourglass
+    python -m graphminer_tpu_torch fsm <graph_prefix> 3 100
+    python -m graphminer_tpu_torch gks <graph_prefix> 3 1,2,3
+    python -m graphminer_tpu_torch query <graph_prefix> 1,2,3:0-1,1-2
     python -m graphminer_tpu_torch info <graph_prefix>
 
-Ported so far: `tc` (the generic set-operation path; with --fast the stream
+Verbs: `tc` (the generic set-operation path; with --fast the stream
 engine), `clique <k>` and `sgl <pattern>` (the plan-interpreting frontier
 engine; clique 3 --fast is the stream engine, clique 4|5 --fast the hi/lo
 clique engine of ops/cliquek.py, clique k >= 6 --fast the streamed
@@ -17,7 +20,11 @@ engine of ops/rectangle.py and sgl house --fast the house engine of
 ops/house.py), `motif <k>` (workloads/motif.py: k = 3 and 4 by the
 formulas, over the generic path or with --fast over the fast engines; k =
 5 by the fused frontier pass and the containment inversion), `sc
-<pattern>` (workloads/count.py) and `info`, with the --cpu, --json,
+<pattern>` (workloads/count.py), `fsm [k [minsup]]` (workloads/fsm.py,
+defaults 2 and 300; vertex and edge labels loaded), `gks [k [kw,kw,...]]`
+(workloads/keyword.py, defaults 3 and 1,2,3), `query @<pattern_file> |
+vl,...:u-v,...` (workloads/query.py; gks and query load vertex labels)
+and `info`, with the --cpu, --json,
 --profile, --chunk, --backend and --engine flags (their defaults come from
 GRAPHMINER_* variables through Config.from_env). --profile adds
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
@@ -28,8 +35,9 @@ mode; colsum_pairs and colsum_finish, its pairs mode) and H (house_t3) in
 this process; on a large-clique count its phases_s also hold the host
 seconds of the count's steps (host_hi, host_lo and, at k = 6,
 host_hi_estimate, host_hi_triangles, host_hi_h2d, host_hi_offsets,
-host_hi_quad_gram). Without --cpu the count runs on CUDA, and it fails
-when no card is visible. The verbs fsm, gks and query and the --sharded
+host_hi_quad_gram); fsm, gks and query launch none of them, and fsm's
+profile also holds the counter fsm_overflow_retries. Without --cpu the
+count runs on CUDA, and it fails when no card is visible. The --sharded
 and --partition flags are not ported yet: they exit non-zero and name
 ROADMAP.md, and nothing runs in their place.
 """
@@ -41,7 +49,6 @@ import sys
 import time
 
 VERBS = ["tc", "clique", "sgl", "motif", "sc", "fsm", "gks", "query", "info"]
-PORTED_VERBS = ("tc", "clique", "sgl", "motif", "sc", "info")
 
 
 def _not_ported(what: str) -> None:
@@ -83,8 +90,6 @@ def main(argv=None):
     p.add_argument("--json", action="store_true", help="machine output")
     ns = p.parse_args(argv)
 
-    if ns.workload not in PORTED_VERBS:
-        _not_ported(f"the '{ns.workload}' verb")
     for flag in ("sharded", "partition"):
         if getattr(ns, flag):
             _not_ported(f"--{flag}")
@@ -97,8 +102,10 @@ def main(argv=None):
 
     from . import load_graph
 
+    needs_labels = ns.workload in ("fsm", "gks", "query")
     t0 = time.time()
-    g = load_graph(ns.graph)
+    g = load_graph(ns.graph, use_vlabel=needs_labels,
+                   use_elabel=ns.workload == "fsm")
     t_load = time.time() - t0
 
     t0 = time.time()
@@ -141,6 +148,38 @@ def main(argv=None):
         pattern = ns.args[0] if ns.args else "hourglass"
         out["total"] = sc_count(g, pattern, chunk=ns.chunk, device=device)
         out["pattern"] = pattern
+    elif ns.workload == "fsm":
+        from .workloads.fsm import fsm_count
+        k = int(ns.args[0]) if ns.args else 2
+        minsup = int(ns.args[1]) if len(ns.args) > 1 else 300
+        out["total"] = fsm_count(g, k, minsup, device=device)
+        out.update(k=k, minsup=minsup)
+    elif ns.workload == "query":
+        # labeled subgraph query (reference query_omp_base: src/query/main.cc
+        # `query <data_graph> <query_graph>`): @<pattern_file> in the
+        # reference's adj-text/CSR formats, or an inline spec
+        # "<vl0>,<vl1>,...:<u>-<v>,<u>-<v>,..." (labels : edges)
+        from .core.pattern_graph import PatternGraph
+        from .workloads.query import make_query, query_count
+        spec = ns.args[0] if ns.args else None
+        if spec is None:
+            raise SystemExit("query needs @<pattern_file> or vl,..:u-v,..")
+        if spec.startswith("@"):
+            q = PatternGraph.from_file(spec[1:])
+        else:
+            labs, _, edges = spec.partition(":")
+            q = make_query([tuple(int(x) for x in e.split("-"))
+                            for e in edges.split(",") if e],
+                           [int(x) for x in labs.split(",")])
+        out["total"] = query_count(g, q, chunk=ns.chunk, device=device)
+        out["query"] = spec
+    elif ns.workload == "gks":
+        from .workloads.keyword import gks_count
+        k = int(ns.args[0]) if ns.args else 3
+        kws = [int(x) for x in (ns.args[1] if len(ns.args) > 1
+                                else "1,2,3").split(",")]
+        out["total"] = gks_count(g, k, kws, device=device)
+        out.update(k=k, keywords=kws)
     out["load_s"] = round(t_load, 3)
     out["run_s"] = round(time.time() - t0, 3)
     if ns.profile:

@@ -274,16 +274,24 @@ def time_ms(fn, device, reps: int = 11):
     return statistics.median(ts), val
 
 
+#: seconds device_ms holds the profiler's window open before its calls and
+#: after their end: the profiler drops a device event whose time stamp falls
+#: outside its window, and the card's stamps can be offset from the host's
+WINDOW_PAD_S = 0.2
+
+
 def device_ms(fn, calls: int = 200, reads: int = 3):
     """(ms, ops) of fn() on the card: the device time of one call in ms —
     the device events torch.profiler records over `calls` calls after ten
     warm-up calls, summed, over the calls they cover — and {event name:
     events per call} of those events (kernels, memsets, copies). The
-    profiler can miss an event at the edge of its window; when even the
-    most frequent event came fewer than `calls` times, the sum is taken
-    over that many calls. CUPTI now and then hands the profiler no device
-    event at all: such a reading is taken again, `reads` readings in all,
-    and the function raises when none of them recorded a device event."""
+    window is held open WINDOW_PAD_S before the calls and after their end.
+    The profiler can still miss an event at the edge of its window; when
+    even the most frequent event came fewer than `calls` times, the sum is
+    taken over that many calls. CUPTI now and then hands the profiler no
+    device event at all: such a reading is taken again, `reads` readings
+    in all, and the function raises when none of them recorded a device
+    event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
@@ -292,9 +300,11 @@ def device_ms(fn, calls: int = 200, reads: int = 3):
     for _ in range(reads):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
             break

@@ -1,10 +1,12 @@
 """Port CLI (python -m graphminer_tpu_torch) against the JAX package's CLI
-on rmat12 and rmat10 graphs saved in the reference binary format."""
+on rmat12 and rmat10 graphs saved in the reference binary format (one of
+them with vertex and edge labels)."""
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from graphminer_tpu.__main__ import main as jmain
@@ -27,6 +29,33 @@ def small(tmp_path_factory):
     p = str(tmp_path_factory.mktemp("rmat10") / "graph")
     save_graph(rmat(10, 8, seed=7), p)
     return p
+
+
+@pytest.fixture(scope="module")
+def labelled(tmp_path_factory):
+    """rmat10 with vertex labels 1-4 and edge labels 0-1 (one label a
+    direction of each edge), as bench.py labels its FSM graphs."""
+    p = str(tmp_path_factory.mktemp("rmat10l") / "graph")
+    g = rmat(10, 8, seed=7)
+    rng = np.random.default_rng(7)
+    g.vlabels = rng.integers(1, 5, g.n_vertices).astype(np.uint8)
+    src = np.repeat(np.arange(g.n_vertices), np.diff(g.rowptr))
+    lo = np.minimum(src, g.colidx).astype(np.int64)
+    hi = np.maximum(src, g.colidx).astype(np.int64)
+    g.elabels = ((lo * 7 + hi * 3) % 2).astype(np.uint16)
+    save_graph(g, p)
+    return p
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the labelled searches: many small ops, and
+    under xdist the workers' intra-op threads only contend."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def run(fn, capsys, *args):
@@ -69,9 +98,37 @@ def test_tc_without_card_exits_naming_cuda(prefix):
     assert r.stdout == ""
 
 
+def test_fsm_without_card_exits_naming_cuda(labelled):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = run_port("fsm", labelled, "2", "30", "--json", env=env)
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr
+    assert r.stdout == ""
+
+
 @pytest.mark.parametrize("args", [
-    ("tc", "--partition", "2"), ("gks", "3"),
-    ("fsm", "2"), ("query", "0,1:0-1"),
+    ("fsm", "2", "30"), ("gks", "3", "1,2,3"),
+    ("query", "1,2,3:0-1,1-2,0-2")])
+def test_labelled_verbs_cpu_agree_with_jax(labelled, capsys, args,
+                                           one_thread):
+    """fsm (vertex and edge labels), gks and query (vertex labels) on
+    --cpu print JAX's total and keys, and launch no kernel of ours."""
+    ours = run(main, capsys, args[0], labelled, *args[1:], "--cpu",
+               "--profile")
+    ref = run(jmain, capsys, args[0], labelled, *args[1:], "--cpu")
+    assert ours["total"] == ref["total"] > 0
+    assert set(ours) - {"profile"} == set(ref)
+    for k in ("k", "minsup", "keywords", "query"):
+        assert ours.get(k) == ref.get(k)
+    prof = ours["profile"]
+    assert prof["device"] == "cpu"
+    assert set(prof["kernel_launches"].values()) == {0}
+    if args[0] == "fsm":
+        assert "fsm_overflow_retries" in prof["counters"]
+
+
+@pytest.mark.parametrize("args", [
+    ("tc", "--partition", "2"),
     ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
 def test_unported_exits_naming_roadmap(prefix, args):
     with pytest.raises(SystemExit) as e:

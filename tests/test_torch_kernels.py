@@ -1,6 +1,7 @@
 """Kernels A-E, m3, m3b, R, X, L, G, Q, S, P, I, W and H against their plain
 PyTorch versions on a CUDA card, A, B, C and E also as one grouped launch over many
-buckets.
+buckets; and the labelled workloads (FSM, query, GKS), which launch none of
+them, on the card against the CPU.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -26,6 +27,7 @@ from graphminer_tpu_torch.ops import (cuda_check, cuda_cliquebig,
 from graphminer_tpu_torch.ops.hubcore import TriangleEngine
 from graphminer_tpu_torch.ops.ring import RingEngine
 from graphminer_tpu_torch.ops.stream import StreamEngine
+from graphminer_tpu_torch.workloads import fsm, keyword, query
 
 pytestmark = pytest.mark.cuda
 SENTINEL = 0x7FFFFFFF
@@ -1219,3 +1221,63 @@ def test_house_on_card(dev, core):
                                                device="cpu")[3])
     assert house.house_count_fast(g, core=core, device=dev) == \
         house.house_count_fast(g, core=core, device="cpu") > 0
+
+
+def labelled_rmat10():
+    g = rmat(10, 8, seed=7)
+    g.vlabels = np.random.default_rng(7).integers(
+        1, 5, g.n_vertices).astype(np.uint8)
+    return g
+
+
+def our_launches():
+    return sum(f.launches for f in (
+        cuda_stream.stream_bucket_count, cuda_ring.ring_phase_c,
+        cuda_ring.ring_tail_pairs, cuda_hubcore.hub_tail_count,
+        cuda_expand.expand_bits, cuda_cliquek.lo_popcount,
+        cuda_gram.bit_gram, cuda_cliquebig.quad_emit,
+        cuda_cliquebig.quad_count, cuda_tri.tri_bitmap, cuda_tri.tri_probe,
+        cuda_tri.tri_lists, cuda_colsum.bit_colsum, cuda_colsum.colsum_pairs,
+        cuda_colsum.colsum_finish, cuda_house.house_t3))
+
+
+@pytest.mark.parametrize("minsup,want", [(30, 50), (100, 36)])
+def test_fsm_on_card(dev, minsup, want):
+    """Labelled rmat10, k = 2: the count and every evaluated pattern's MNI
+    support on the card equal the CPU's; no kernel of ours launched."""
+    g = labelled_rmat10()
+    n0 = our_launches()
+    card = fsm._FSM(g, minsup, device=dev)
+    assert card.run(2) == want
+    assert our_launches() == n0
+    cpu = fsm._FSM(g, minsup, device="cpu")
+    assert cpu.run(2) == want
+    assert card.supports == cpu.supports
+
+
+def test_fsm_edge_labels_on_card(dev):
+    from graphminer_tpu_torch.io.synth import labeled_er
+    g = labeled_er(300, 0.03, n_vlabels=3, n_elabels=2, seed=4)
+    card = fsm._FSM(g, 5, device=dev)
+    cpu = fsm._FSM(g, 5, device="cpu")
+    assert card.run(3) == cpu.run(3) > 0
+    assert card.supports == cpu.supports
+
+
+def test_query_on_card(dev):
+    g = labelled_rmat10()
+    q = query.make_query([(0, 1), (1, 2), (0, 2), (2, 3)], [1, 2, 3, 4])
+    n0 = our_launches()
+    got = query.query_count(g, q, device=dev)
+    assert got == query.query_count(g, q, use_filter=False, device=dev)
+    assert our_launches() == n0
+    assert got == query.query_count(g, q, device="cpu") > 0
+
+
+@pytest.mark.parametrize("k,kw", [(3, (1, 2, 3)), (3, (1, 2))])
+def test_gks_on_card(dev, k, kw):
+    g = labelled_rmat10()
+    n0 = our_launches()
+    got = keyword.gks_count(g, k, kw, device=dev)
+    assert our_launches() == n0
+    assert got == keyword.gks_count(g, k, kw, device="cpu") > 0
