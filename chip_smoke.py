@@ -11,7 +11,9 @@ three probe scripts, the generic clique and SgL counts, the fast 4- and
 the large-clique engine (k = 6 at rmat14 and rmat16, k = 7 and 8 at
 rmat12), the fast diamond and rectangle engines (45,873,513,836
 diamonds and 51,349,430,411 4-cycles at rmat18) and the fast house engine
-(71,686,049,455,877 houses at rmat18) with the motif and sc verbs — and
+(71,686,049,455,877 houses at rmat18) with the motif and sc verbs, the
+labelled workloads, the dense-core hybrid and clique4 engines and the
+scale-out layer (sharded, partitioned and 2-process counts) — and
 fails (non-zero exit, no result line) when any phase fails:
 
   1. card and versions; exits when torch.cuda.is_available() is false;
@@ -149,14 +151,31 @@ fails (non-zero exit, no result line) when any phase fails:
      GKS k = 3, keywords 1,2,3 on the labelled rmat11, card == CPU; and the
      CLI's fsm, gks and query on the card on the labelled rmat11 saved with
      vertex and edge labels, against the CPU's counts, with no launch
-     (--profile's kernel_launches all 0). Each count prints its seconds.
+     (--profile's kernel_launches all 0). Each count prints its seconds;
+ 18. runs the dense core and clique4 on kernel G and the scale-out layer:
+     triangle_count_hybrid on rmat18 at core 16384 (G once and nothing
+     else of ours), G == plain on the rmat14 dense core (512 words, base =
+     mask), the rmat18 core's G launch timed beside its bound and the
+     library form (D as int8, torch._int_mm(D, Dᵀ), the masked sum);
+     Clique4Engine on rmat18 (2,280,263,816; build, count and G's device
+     ms) and clique4_count_fast on rmat14 (36,628,817), G once a count,
+     G == plain on the rmat14 engine's core-dst tasks; then, launching
+     nothing of ours, count_pattern_sharded on rmat18 over a (1, 1) mesh,
+     every card and a (2, 2) mesh that repeats a card, and diamonds on
+     rmat12 (57,515,371); count_pattern_partitioned on rmat18 (4 parts)
+     and 4-cycles on rmat12 (2 parts, hops 2: 52,988,519);
+     triangle_count_segmented on rmat16 (4 segments: 15,623,664); a
+     2-process count_pattern_multiprocess on rmat18, both ranks on the card
+     through gloo, each printing the golden; the CLI's tc rmat18 and clique
+     4 rmat14 with --sharded and --partition (4 and 2) on the card; and
+     graphminer_tpu_torch/scripts/dryrun_multichip.py with n = 4.
 
-Each path of phases 2, 4-6, 8 and 12-17 runs with every launch count set to
+Each path of phases 2, 4-6, 8 and 12-18 runs with every launch count set to
 0 just before it, and its counts are read just after. The line before the
 last is the card's name and power limit; the last line is {"ok": true,
-"device": {...}}. The rmat10, rmat12, rmat14, rmat18 and rmat20 graphs and
-the labelled rmat11 are written under the git-ignored graph_cache/
-directory.
+"device": {...}}. The rmat10, rmat12, rmat14, rmat16, rmat18 and rmat20
+graphs and the labelled rmat11 are written under the git-ignored
+graph_cache/ directory.
 """
 import json
 import os
@@ -221,7 +240,9 @@ KERNELS = {
     "bit_gram": {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/bit_gram.cu",
-        "replaces": "graphminer_tpu/ops/cliquek.py:223"},
+        "replaces": "graphminer_tpu/ops/cliquek.py:223, "
+                    "graphminer_tpu/ops/dense_core.py:25, "
+                    "graphminer_tpu/ops/clique4.py:55"},
     "quad_emit": {
         "route": "cuda",
         "source": "graphminer_tpu_torch/csrc/quad_emit.cu",
@@ -3212,6 +3233,249 @@ def run_labelled():
     say(f"phase 17 (fsm, query, gks): {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 18: the dense core and clique4 on kernel G, and scale-out
+# --------------------------------------------------------------------------
+
+#: rmat(16, 16, seed=7) triangles (bench.py:62-63)
+GOLDEN16_TC = 15_623_664
+#: rmat(14, 16, seed=7) 4-cliques and rmat(12, 16, seed=7) diamonds
+GOLDEN_C4_14 = 36_628_817
+GOLDEN_DIAMOND12 = 57_515_371
+#: the phase's 2-rank count: each rank loads rmat18 and counts its induced
+#: partition on cuda:{rank % cards}, summed over gloo
+WORKER18 = """
+import sys, time, torch
+from graphminer_tpu_torch import load_graph
+from graphminer_tpu_torch.core.plan import TRIANGLE
+from graphminer_tpu_torch.parallel.distributed import (
+    count_pattern_multiprocess, init_distributed)
+init_distributed()
+rank = torch.distributed.get_rank()
+g = load_graph(sys.argv[1])
+t0 = time.perf_counter()
+total = count_pattern_multiprocess(g, TRIANGLE)
+torch.cuda.synchronize()
+print(f"RANK={rank} TOTAL={total} "
+      f"device=cuda:{rank % torch.cuda.device_count()} "
+      f"count_s={time.perf_counter() - t0:.3f} "
+      f"jax_loaded={'jax' in sys.modules}", flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def cached_rmat(scale):
+    """rmat(scale, 16, seed=7) from graph_cache/, written there first when
+    an earlier phase has not."""
+    from graphminer_tpu_torch import load_graph
+    if not os.path.exists(graph_prefix(scale) + ".meta.txt"):
+        return write_rmat(scale)
+    return load_graph(graph_prefix(scale))
+
+
+def only_g(label, fn, want):
+    """fn() with every count at 0 before it; fails unless it returns
+    `want` and launched G once and nothing else of ours. Returns host s."""
+    reset_counts()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: n for k, n in read_counts().items() if n}
+    check(got == want, f"{label}: {got} != {want}")
+    check(launched == {"bit_gram": 1},
+          f"{label}: launched {launched}, not G once")
+    say(f"[{CARD}] {label}: {got} in {dt:.3f} s (host clock), G once")
+    return dt
+
+
+def dense_core_g(g18):
+    """The hybrid on rmat18 and its core's G launch: timed with CUDA events
+    beside its bound over the mask's set bits and the library form (D as
+    int8, torch._int_mm(D, Dᵀ), the masked sum); G == plain on the rmat14
+    core (the whole graph). Returns G's timing keys."""
+    from graphminer_tpu_torch.ops import cuda_expand, cuda_gram, dense_core
+    from graphminer_tpu_torch.utils.profiling import gram_bounds
+    from graphminer_tpu_torch.workloads.triangle import triangle_count_hybrid
+    only_g("triangle_count_hybrid rmat18 core 16384",
+           lambda: triangle_count_hybrid(g18, device="cuda"), GOLDEN[18])
+    rg14 = cached_rmat(14).relabel_by_degree(descending=False).orientation()
+    d14 = dense_core.core_rows(rg14, 0, "cuda")
+    compare("bit_gram", cuda_gram.bit_gram(d14, d14),
+            cuda_gram.bit_gram_plain(d14, d14), "rmat14 dense core (512 "
+            "words, base = mask)")
+
+    rg = g18.relabel_by_degree(descending=False).orientation()
+    cs = rg.n_vertices - 16384
+    t0 = time.perf_counter()
+    d = dense_core.core_rows(rg, cs, "cuda")
+    plan = cuda_gram.plan_gram(d)
+    prep_s = time.perf_counter() - t0
+    g_ms, core = time_ms(lambda: cuda_gram.bit_gram(d, d, plan=plan).sum())
+    x = cuda_expand.expand_bits_plain(d)
+    lib_ms, lib = time_ms(lambda: (torch._int_mm(x, x.t()) * x).sum())
+    del x
+    check(int(core) == int(lib), f"rmat18 core: G {int(core)} != "
+          f"torch._int_mm's {int(lib)}")
+    gb = gram_bounds(d, d, plan.n_tiles, cuda_gram.TILE)
+    side = d.shape[1] * 32 // cuda_gram.TILE
+    say(f"[{CARD}] dense core rmat18 (C = 16384, {d.shape[1]} words, "
+        f"{int(core)} core triangles): G {g_ms:.4f} ms over "
+        f"{plan.n_tiles} of {side * side} tiles, bound {gb['mask'][0]:.4f} "
+        f"ms over the mask's set bits ({gb['mask'][1]}), "
+        f"{gb['tiles'][0]:.4f} ms over its tiles, {gb['full'][0]:.4f} ms "
+        f"over the full Gram; torch._int_mm + masked sum {lib_ms:.4f} ms; "
+        f"rows and plan built in {prep_s:.3f} s")
+    return {"dense_core_ms": g_ms, "dense_core_bound_ms": gb["mask"][0],
+            "dense_core_library_ms": lib_ms}
+
+
+def clique4_g(g18):
+    """Clique4Engine on rmat18 (core 4096) and clique4_count_fast on
+    rmat14, one G launch a count; G == plain on the rmat14 engine's
+    core-dst tasks; G's rmat18 launch timed beside its bound."""
+    from graphminer_tpu_torch.ops import cuda_gram
+    from graphminer_tpu_torch.ops.clique4 import (Clique4Engine,
+                                                  clique4_count_fast)
+    from graphminer_tpu_torch.utils.profiling import gram_bounds
+    eng, build_s = no_launches("Clique4Engine rmat18 build",
+                               lambda: Clique4Engine(g18, device="cuda"))
+    count_s = only_g("Clique4Engine rmat18 count", eng.count, GOLDEN_CK[4])
+    base, mask, kw = eng.gram_args()
+    g_ms, _ = time_ms(eng.core_partials)
+    gb = gram_bounds(base, mask, eng.gram_plan.n_tiles, cuda_gram.TILE, **kw)
+    say(f"[{CARD}] Clique4Engine rmat18: build {build_s:.3f} s (tail "
+        f"{eng.tail_total} by the frontier), count {count_s:.3f} s; G "
+        f"{g_ms:.4f} ms ({eng.n_core_edges} core-dst tasks, gathered, "
+        f"depth 1, {eng.gram_plan.n_tiles} tiles), bound "
+        f"{gb['mask'][0]:.4f} ms ({gb['mask'][1]})")
+    del eng
+    g14 = cached_rmat(14)
+    only_g("clique4_count_fast rmat14",
+           lambda: clique4_count_fast(g14, device="cuda"), GOLDEN_C4_14)
+    eng14 = Clique4Engine(g14, device="cuda")
+    base, mask, kw = eng14.gram_args()
+    compare("bit_gram", eng14.core_partials(),
+            cuda_gram.bit_gram_plain(base, mask, **kw),
+            "rmat14 clique4 core-dst tasks (gathered, depth 1)")
+    return {"clique4_ms": g_ms, "clique4_bound_ms": gb["mask"][0]}
+
+
+def counted(label, fn, want):
+    """no_launches with the count checked and its seconds printed."""
+    got, dt = no_launches(label, fn)
+    check(got == want, f"{label}: {got} != {want}")
+    say(f"[{CARD}] {label}: {got} in {dt:.3f} s (host clock)")
+
+
+def two_ranks():
+    """Two processes on the card through gloo on 127.0.0.1, each counting
+    its induced partition of rmat18; each must print the golden. Both are
+    killed if they outlast the timeout."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=REPO,
+                   GRAPHMINER_COORDINATOR=f"127.0.0.1:{port}",
+                   GRAPHMINER_NUM_PROCESSES="2",
+                   GRAPHMINER_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", WORKER18, PREFIX], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("RANK=")]
+        check(p.returncode == 0 and line and
+              f"TOTAL={GOLDEN[18]} " in line[0] and
+              "jax_loaded=False" in line[0],
+              f"rank {rank} of 2: rc {p.returncode}\n{out[-2000:]}")
+        say(f"[{CARD}] count_pattern_multiprocess rmat18, 2 ranks over "
+            f"gloo: {line[0]}")
+    say(f"count_pattern_multiprocess rmat18: both ranks in "
+        f"{time.perf_counter() - t0:.1f} s (their start included)")
+
+
+def run_scale_out(g18):
+    """Phase 18: the hybrid's dense core and clique4 on kernel G, then the
+    sharded, partitioned, segmented and 2-process counts, the CLI's
+    --sharded and --partition on the card and the port's multichip dryrun
+    (see the module docstring). Returns ({"bit_gram": G's timing keys},
+    {"bit_gram": G's launches here})."""
+    from graphminer_tpu_torch.core.plan import SGL_PLANS, TRIANGLE
+    from graphminer_tpu_torch.parallel import distributed, mesh, partition
+    from graphminer_tpu_torch.scripts import dryrun_multichip
+    t_phase = time.perf_counter()
+    res = dense_core_g(g18)
+    res.update(clique4_g(g18))
+    #: the hybrid's count and the two clique4 counts, each held by only_g
+    #: to one G launch
+    g_launches = 3
+    torch.cuda.empty_cache()
+
+    n = torch.cuda.device_count()
+    meshes = {"(1, 1)": mesh.make_mesh(devices=["cuda:0"], shape=(1, 1)),
+              f"every card {(1, n)}": mesh.make_mesh(),
+              "(2, 2)": mesh.make_mesh(
+                  devices=[f"cuda:{i % n}" for i in range(4)],
+                  shape=(2, 2))}
+    for name, m in meshes.items():
+        counted(f"count_pattern_sharded rmat18 triangles, mesh {name} on "
+                f"{[str(d) for d in m.devices.flat]}",
+                lambda: mesh.count_pattern_sharded(g18, TRIANGLE, mesh=m),
+                GOLDEN[18])
+    g12 = cached_rmat(12)
+    counted("count_pattern_sharded rmat12 diamonds, every card",
+            lambda: mesh.count_pattern_sharded(g12, SGL_PLANS["diamond"]),
+            GOLDEN_DIAMOND12)
+    counted("count_pattern_partitioned rmat18 triangles, 4 parts",
+            lambda: distributed.count_pattern_partitioned(
+                g18, TRIANGLE, 4, device="cuda"), GOLDEN[18])
+    counted("count_pattern_partitioned rmat12 4-cycles, 2 parts (hops 2)",
+            lambda: distributed.count_pattern_partitioned(
+                g12, SGL_PLANS["rectangle"], 2, device="cuda"),
+            GOLDEN_RECT[12])
+    g16 = cached_rmat(16)
+    counted("triangle_count_segmented rmat16, 4 segments",
+            lambda: partition.triangle_count_segmented(g16, 4,
+                                                       device="cuda"),
+            GOLDEN16_TC)
+    del g16
+    torch.cuda.empty_cache()
+    two_ranks()
+
+    for scale, args, want in ((18, ("tc", "--sharded"), GOLDEN[18]),
+                              (18, ("tc", "--partition", "4"), GOLDEN[18]),
+                              (14, ("clique", "4", "--sharded"),
+                               GOLDEN_C4_14),
+                              (14, ("clique", "4", "--partition", "2"),
+                               GOLDEN_C4_14)):
+        out = cli_json(args, scale)
+        check(out["total"] == want, f"CLI {args}: {out['total']} != {want}")
+        check(not any(out["profile"]["kernel_launches"].values()),
+              f"CLI {args}: launches {out['profile']['kernel_launches']}")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip.main(["--n", "4"])
+    say(f"[{CARD}] dryrun_multichip n = 4: {dry} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    say(f"phase 18 (dense core, clique4, scale-out): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"bit_gram": res}, {"bit_gram": g_launches}
+
+
 def main():
     check_environment()
     build_kernels()
@@ -3260,7 +3524,10 @@ def main():
     res.update(house_res)
     launches.update(house_launches)
     run_labelled()
-    for part in (ck_launches, big_launches):   # G: the hub-core count's too
+    scale_res, scale_launches = run_scale_out(g)
+    res["bit_gram"].update(scale_res["bit_gram"])
+    for part in (ck_launches, big_launches, scale_launches):
+        # G: the hub-core count's too
         for key, n in part.items():
             launches[key] = launches.get(key, 0) + n
     torch.cuda.synchronize()
@@ -3268,7 +3535,9 @@ def main():
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "host_us", "library_host_us",
              "tile_bound_ms", "full_gram_bound_ms", "task_list_bound_ms",
-             "level0_ms", "both_calls_ms", "prebuilt_ms", "plan_ms")
+             "level0_ms", "both_calls_ms", "prebuilt_ms", "plan_ms",
+             "dense_core_ms", "dense_core_bound_ms", "dense_core_library_ms",
+             "clique4_ms", "clique4_bound_ms")
     say(json.dumps({"kernels": [
         dict(name=k, **KERNELS[k], launches=launches[k],
              max_abs_err=MAX_ERR[k], **{x: res[k][x] for x in keys},

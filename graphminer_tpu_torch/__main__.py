@@ -37,9 +37,12 @@ seconds of the count's steps (host_hi, host_lo and, at k = 6,
 host_hi_estimate, host_hi_triangles, host_hi_h2d, host_hi_offsets,
 host_hi_quad_gram); fsm, gks and query launch none of them, and fsm's
 profile also holds the counter fsm_overflow_retries. Without --cpu the
-count runs on CUDA, and it fails when no card is visible. The --sharded
-and --partition flags are not ported yet: they exit non-zero and name
-ROADMAP.md, and nothing runs in their place.
+count runs on CUDA, and it fails when no card is visible. For tc and
+clique, --partition N counts over N induced halo partitions in turn
+(parallel/distributed.py) and --sharded shards the edge tasks over every
+visible card, or over the CPU with --cpu (parallel/mesh.py); --partition
+takes precedence over --sharded, and --sharded over --fast. Both run the
+frontier engine, no kernel of ours.
 """
 from __future__ import annotations
 
@@ -51,9 +54,17 @@ import time
 VERBS = ["tc", "clique", "sgl", "motif", "sc", "fsm", "gks", "query", "info"]
 
 
-def _not_ported(what: str) -> None:
-    raise SystemExit(f"graphminer_tpu_torch: {what} is not ported yet "
-                     "(see ROADMAP.md)")
+def _scale_out(g, plan, ns, device):
+    """The count of `plan` over --partition N induced partitions in turn
+    on `device`, or else sharded over every visible card (--sharded; one
+    CPU device with --cpu)."""
+    if ns.partition:
+        from .parallel.distributed import count_pattern_partitioned
+        return count_pattern_partitioned(g, plan, ns.partition,
+                                         chunk=ns.chunk, device=device)
+    from .parallel.mesh import count_pattern_sharded, make_mesh
+    mesh = make_mesh(devices=[device] if device.type == "cpu" else None)
+    return count_pattern_sharded(g, plan, mesh=mesh, chunk=ns.chunk)
 
 
 def main(argv=None):
@@ -67,7 +78,8 @@ def main(argv=None):
                    help="run on the CPU (plain PyTorch versions of the "
                         "kernels) instead of CUDA")
     p.add_argument("--sharded", action="store_true",
-                   help="shard over all visible devices (not ported)")
+                   help="tc and clique: shard the edge tasks over all "
+                        "visible cards (the CPU with --cpu)")
     p.add_argument("--chunk", type=int, default=cfg.chunk,
                    help="edge tasks per device chunk")
     p.add_argument("--backend", default=cfg.backend,
@@ -83,16 +95,13 @@ def main(argv=None):
                         "house = house engine, motif 3|4 = formula over the "
                         "fast engines")
     p.add_argument("--partition", type=int, default=0, metavar="N",
-                   help="(not ported)")
+                   help="tc and clique: count over N induced halo "
+                        "partitions in turn (out-of-core)")
     p.add_argument("--profile", action="store_true",
                    help="print the phase/counter profiler report and the "
                         "kernel launch counts")
     p.add_argument("--json", action="store_true", help="machine output")
     ns = p.parse_args(argv)
-
-    for flag in ("sharded", "partition"):
-        if getattr(ns, flag):
-            _not_ported(f"--{flag}")
 
     from .device import resolve_device
     try:
@@ -115,6 +124,9 @@ def main(argv=None):
     if ns.workload == "info":
         out = {"V": g.n_vertices, "E": g.n_edges, "max_degree": g.max_degree,
                "has_vlabels": g.vlabels is not None}
+    elif ns.workload == "tc" and (ns.partition or ns.sharded):
+        from .core.plan import TRIANGLE
+        out["total"] = _scale_out(g, TRIANGLE, ns, device)
     elif ns.workload == "tc":
         if ns.fast:
             from .ops.stream import triangle_count_stream
@@ -128,7 +140,11 @@ def main(argv=None):
     elif ns.workload == "clique":
         from .workloads.clique import clique_count
         k = int(ns.args[0]) if ns.args else 4
-        out["total"] = clique_count(g, k, fast=ns.fast, **run)
+        if ns.partition or ns.sharded:
+            from .core.plan import clique_plan
+            out["total"] = _scale_out(g, clique_plan(k), ns, device)
+        else:
+            out["total"] = clique_count(g, k, fast=ns.fast, **run)
         out["k"] = k
     elif ns.workload == "sgl":
         from .workloads.sgl import sgl_count

@@ -8,8 +8,8 @@ chunked edge-parallel batched intersect-count on the device (ops/setops.py;
 no kernel of ours: compares and searches are torch ops). This is the CLI's
 default `tc` and the oracle the fast engines are held against.
 
-triangle_count_hybrid needs ops/dense_core.py, which is not ported yet: it
-raises SystemExit naming ROADMAP.md.
+triangle_count_hybrid counts the dense core on kernel G (ops/dense_core.py)
+and the tail edges by the same intersect path.
 """
 from __future__ import annotations
 
@@ -86,12 +86,45 @@ def triangle_count_fast(g, **kw) -> int:
     return _fast(g, **kw)
 
 
-def triangle_count_hybrid(g, **_) -> int:
-    """The dense-core hybrid count (graphminer_tpu's ops/dense_core.py): not
-    ported yet."""
-    raise SystemExit("graphminer_tpu_torch: triangle_count_hybrid needs "
-                     "ops/dense_core.py, which is not ported yet (see "
-                     "ROADMAP.md)")
+def triangle_count_hybrid(g, core_size: int = 16384, chunk: int = 16384,
+                          backend: str = "auto",
+                          device: DeviceLike = "cuda") -> int:
+    """Hybrid exact triangle count (the reference's matrix/ GEMM +
+    intersection split, omp_mm.cpp:104-215).
+
+    Ascending-degree relabel → orientation points to higher ids → the
+    high-degree core [V-C, V) is closed under out-neighbors, so core-core
+    edges are counted entirely by one launch of kernel G
+    (ops/dense_core.py); edges with a tail endpoint go through the bucketed
+    intersect path with small widths (torch ops)."""
+    from ..ops.dense_core import core_triangles
+    from ..utils.bucketing import bucket_edge_tasks, pick_chunk
+
+    assert not g.is_dag, "hybrid path needs the undirected graph (it relabels)"
+    dev = resolve_device(device)
+    rg = g.relabel_by_degree(descending=False).orientation()
+    v = rg.n_vertices
+    core_start = v - min(core_size, v)
+
+    total = core_triangles(rg, core_start, dev)
+
+    src, dst = rg.edge_list()
+    tail = (src < core_start) | (dst < core_start)
+    src, dst = src[tail], dst[tail]
+    if src.size:
+        dg = DeviceGraph.from_host(rg, device=dev)
+        deg = np.diff(rg.rowptr)
+        order, groups = bucket_edge_tasks(deg[src], deg[dst],
+                                          max(8, rg.max_degree))
+        src, dst = src[order], dst[order]
+        part = torch.zeros((), dtype=torch.int64, device=dev)
+        for s, e, wa, wb in groups:
+            ck = pick_chunk(e - s, max_chunk=chunk)
+            part += _tc_device(dg, to_device(src[s:e], dev),
+                               to_device(dst[s:e], dev), width=wa,
+                               width_b=wb, chunk=ck, backend=backend)
+        total += int(part)
+    return total
 
 
 def triangles_per_edge(g, src, dst, chunk: int = 4096,

@@ -129,12 +129,19 @@ def test_labelled_verbs_cpu_agree_with_jax(labelled, capsys, args,
 
 @pytest.mark.parametrize("args", [
     ("tc", "--partition", "2"),
-    ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2")])
-def test_unported_exits_naming_roadmap(prefix, args):
-    with pytest.raises(SystemExit) as e:
-        main([args[0], prefix, *args[1:], "--cpu"])
-    assert e.value.code != 0
-    assert "ROADMAP.md" in str(e.value.code)
+    ("tc", "--fast", "--sharded"), ("tc", "--fast", "--partition", "2"),
+    ("clique", "4", "--sharded"), ("clique", "4", "--partition", "2")])
+def test_unported_exits_naming_roadmap(prefix, capsys, args):
+    """The scale-out flags on --cpu print the JAX CLI's total (partition
+    before sharded before fast, as JAX takes them) and launch no kernel of
+    ours."""
+    ours = run(main, capsys, args[0], prefix, *args[1:], "--cpu",
+               "--profile")
+    ref = run(jmain, capsys, args[0], prefix, *args[1:], "--cpu")
+    assert ours["total"] == ref["total"] > 0
+    assert ours.get("k") == ref.get("k")
+    assert ours["profile"]["device"] == "cpu"
+    assert set(ours["profile"]["kernel_launches"].values()) == {0}
 
 
 @pytest.mark.parametrize("args", [

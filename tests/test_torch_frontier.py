@@ -6,6 +6,7 @@ candidate sets, count_patterns_fused, explicit tasks, a k = 2 plan and the
 rmat12 goldens. Counts must be equal exactly."""
 import numpy as np
 import pytest
+import torch
 
 import oracle
 from graphminer_tpu.core import plan as jplan
@@ -19,6 +20,17 @@ from graphminer_tpu_torch.engine import frontier
 from graphminer_tpu_torch.io.synth import labeled_er, rmat
 from graphminer_tpu_torch.workloads.clique import clique_count
 from graphminer_tpu_torch.workloads.sgl import sgl_count
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: these tests issue many small torch ops, and under
+    xdist the workers' intra-op threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SGL = ["diamond", "rectangle", "house", "pentagon"]
 

@@ -1,7 +1,8 @@
 """Kernels A-E, m3, m3b, R, X, L, G, Q, S, P, I, W and H against their plain
 PyTorch versions on a CUDA card, A, B, C and E also as one grouped launch over many
-buckets; and the labelled workloads (FSM, query, GKS), which launch none of
-them, on the card against the CPU.
+buckets, G also at 512 words (the dense core) and in clique4's gathered
+launch; and the labelled workloads (FSM, query, GKS) and the scale-out
+counts, which launch none of them, on the card against the CPU.
 
 These need the card (a CUDA kernel has no interpret mode) and skip without
 one; chip_smoke.py runs the same comparisons at the main path's shapes.
@@ -586,6 +587,66 @@ def test_bit_gram_ragged(dev, hw):
     assert torch.equal(got, cuda_gram.bit_gram_plain(base, mask))
     before = cuda_gram.bit_gram.launches
     assert int(cuda_gram.bit_gram(base[:0], mask).sum()) == 0
+    assert cuda_gram.bit_gram.launches == before
+
+
+def test_bit_gram_512_words_self_mask(dev):
+    """G at 512 words (dim 16384, the hybrid's default core) with base =
+    mask = the packed DAG rows of the rmat14 graph, whole (all of it is
+    core), as ops/dense_core.py calls it: == plain, one launch, and the
+    sum is rmat14's triangle count; then the hybrid count on the card."""
+    from graphminer_tpu_torch.ops import dense_core
+    from graphminer_tpu_torch.workloads.triangle import triangle_count_hybrid
+    g = rmat(14, 16, seed=7)
+    rg = g.relabel_by_degree(descending=False).orientation()
+    d = dense_core.core_rows(rg, 0, dev)
+    assert d.shape == (16384, 512)
+    plan = cuda_gram.plan_gram(d)
+    before = cuda_gram.bit_gram.launches
+    got = cuda_gram.bit_gram(d, d, plan=plan)
+    assert cuda_gram.bit_gram.launches == before + 1
+    assert torch.equal(got, cuda_gram.bit_gram_plain(d, d))
+    assert int(got.sum()) == 2_860_691
+    before = cuda_gram.bit_gram.launches
+    assert triangle_count_hybrid(g, device=dev) == 2_860_691
+    assert cuda_gram.bit_gram.launches == before + 1
+
+
+def test_clique4_gathered_on_card(dev):
+    """Clique4Engine: one G launch a count in its gathered mode (depth 1,
+    the layout table's core rows as the mask), == its plain version, and
+    the count == the CPU's."""
+    from graphminer_tpu_torch.ops.clique4 import Clique4Engine
+    g = rmat(12, 8, seed=23)
+    eng = Clique4Engine(g, core=256, device=dev)
+    base, mask, kw = eng.gram_args()
+    before = cuda_gram.bit_gram.launches
+    want = Clique4Engine(g, core=256, device="cpu").count()
+    assert eng.count() == want
+    assert cuda_gram.bit_gram.launches == before + 1
+    assert torch.equal(eng.core_partials(),
+                       cuda_gram.bit_gram_plain(base, mask, **kw))
+
+
+def test_scale_out_on_card(dev):
+    """The sharded count on a mesh that repeats the card, the partitioned
+    count and the segmented count on the card == the CPU's; none launches
+    a kernel of ours."""
+    from graphminer_tpu_torch.core.plan import SGL_PLANS, TRIANGLE
+    from graphminer_tpu_torch.parallel import distributed, mesh, partition
+    g = rmat(11, 16, seed=7)
+    m = mesh.make_mesh(devices=[dev] * 4, shape=(2, 2))
+    before = cuda_gram.bit_gram.launches
+    for plan in (TRIANGLE, SGL_PLANS["diamond"]):
+        cpu = mesh.make_mesh(devices=["cpu"])
+        assert mesh.count_pattern_sharded(g, plan, mesh=m) == \
+            mesh.count_pattern_sharded(g, plan, mesh=cpu)
+    assert distributed.count_pattern_partitioned(
+        g, SGL_PLANS["rectangle"], 2, device=dev) == \
+        distributed.count_pattern_partitioned(
+            g, SGL_PLANS["rectangle"], 2, device="cpu")
+    assert partition.triangle_count_segmented(g, 4, device=dev) == \
+        partition.triangle_count_segmented(g, 4, device="cpu")
     assert cuda_gram.bit_gram.launches == before
 
 

@@ -10,6 +10,7 @@ from collections import Counter
 
 import numpy as np
 import pytest
+import torch
 
 from graphminer_tpu.core.graph import HostGraph as JHostGraph
 from graphminer_tpu.workloads import count as jcount
@@ -20,6 +21,16 @@ from graphminer_tpu_torch.io.synth import erdos_renyi, rmat
 from graphminer_tpu_torch.workloads import count, motif
 
 import oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: these tests issue many small torch ops, and under
+    xdist the workers' intra-op threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

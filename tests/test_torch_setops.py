@@ -11,6 +11,17 @@ from graphminer_tpu.ops import setops as jsetops
 from graphminer_tpu_torch.ops import setops
 from graphminer_tpu_torch.types import SENTINEL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: these tests issue many small torch ops, and under
+    xdist the workers' intra-op threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTHS = [8, 16, 100, 128]
 BACKENDS = ["bc", "bs"]
 
