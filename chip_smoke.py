@@ -3154,8 +3154,7 @@ def run_labelled():
     t_phase = time.perf_counter()
     g14 = labelled_rmat(14)
     for minsup, want in GOLDEN_FSM14.items():
-        PROFILER.seconds.clear()
-        PROFILER.counters.clear()
+        PROFILER.reset()
         got, dt = no_launches(f"fsm rmat14 minsup {minsup}", lambda: (
             fsm.fsm_count(g14, 2, minsup, device="cuda")))
         check(got == want, f"fsm rmat14 k = 2 minsup {minsup}: {got} != "

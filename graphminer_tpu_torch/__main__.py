@@ -26,7 +26,11 @@ defaults 2 and 300; vertex and edge labels loaded), `gks [k [kw,kw,...]]`
 vl,...:u-v,...` (workloads/query.py; gks and query load vertex labels)
 and `info`, with the --cpu, --json,
 --profile, --chunk, --backend and --engine flags (their defaults come from
-GRAPHMINER_* variables through Config.from_env). --profile adds
+GRAPHMINER_* variables through Config.from_env). --profile turns on the
+profiler (utils/profiling.py::PROFILER: a count's spans record, and a count
+times its device work with a CUDA event pair, the phase device_count) and
+prints its report: phases_s (each span's total seconds), phases_self_s
+(its self seconds), counters (kernels.built among them) and
 `kernel_launches`, the launches of kernels A (stream_bucket_count), B
 (ring_phase_c), C (ring_tail_pairs), E (hub_tail_count), X (expand_bits),
 L (lo_popcount), G (bit_gram), Q (quad_emit, quad_count), S
@@ -98,10 +102,14 @@ def main(argv=None):
                    help="tc and clique: count over N induced halo "
                         "partitions in turn (out-of-core)")
     p.add_argument("--profile", action="store_true",
-                   help="print the phase/counter profiler report and the "
-                        "kernel launch counts")
+                   help="print the span/counter profiler report and the "
+                        "kernel launch counts (a count also times its "
+                        "device work with a CUDA event pair)")
     p.add_argument("--json", action="store_true", help="machine output")
     ns = p.parse_args(argv)
+    if ns.profile:
+        from .utils.profiling import PROFILER
+        PROFILER.enabled = True
 
     from .device import resolve_device
     try:

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 
 from ..types import VID_DTYPE, EID_DTYPE
+from ..utils.profiling import PROFILER
 
 
 @dataclass
@@ -107,6 +108,7 @@ class HostGraph:
         el = self.elabels[order] if self.elabels is not None else None
         return replace(self, colidx=col, elabels=el)
 
+    @PROFILER.span("prep.orient")
     def orientation(self) -> "HostGraph":
         """Undirected → DAG keeping edges toward higher (degree, id).
 
@@ -134,6 +136,7 @@ class HostGraph:
                     is_dag=True)
         return g  # input neighbor lists sorted ⇒ output sorted (stable filter)
 
+    @PROFILER.span("prep.relabel")
     def relabel_by_degree(self, descending: bool = True) -> "HostGraph":
         """Renumber vertices by degree. Unlabeled pattern counts are invariant
         under relabeling; this clusters similar-degree vertices so that padded

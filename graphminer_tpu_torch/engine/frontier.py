@@ -297,7 +297,7 @@ def count_patterns_fused(g, plans, chunk: int = 2048,
                                          chunk=ck, sub=sub or ck,
                                          backend=backend, wf=wf)
 
-        with PROFILER.phase("device_count", dev):
+        with PROFILER.span("device_count", dev, hot=True):
             if not buck:
                 totals = run(src, dst, wf, chunk)
             else:
@@ -345,9 +345,9 @@ def count_pattern(g, plan: Plan, chunk: int = 2048, sub: Optional[int] = None,
     dev = resolve_device(device)
     if plan.use_dag and not g.is_dag:
         assert tasks is None, "explicit tasks must come with the final graph"
-        with PROFILER.phase("orient"):
+        with PROFILER.span("orient"):
             g = g.orientation()
-    with PROFILER.phase("prep"):
+    with PROFILER.span("prep"):
         dg = DeviceGraph.from_host(g, device=dev)
         if tasks is not None:
             src, dst = np.asarray(tasks[0]), np.asarray(tasks[1])
@@ -391,7 +391,7 @@ def count_pattern(g, plan: Plan, chunk: int = 2048, sub: Optional[int] = None,
 
     if bucketed is None:
         bucketed = width is None and wf > 64 and src.shape[0] > 0
-    with PROFILER.phase("device_count", dev):
+    with PROFILER.span("device_count", dev, hot=True):
         if not bucketed or width is not None:
             total = run(src, dst, width or wf, chunk)
         else:

@@ -26,6 +26,10 @@ A wrapper's host path is part of every timing of a small kernel, so it is
 kept short: once the library is loaded, kernels() returns it without the
 lock, entry() hands out each entry point's ctypes function from a dict, and
 stream() reads the raw stream handle without building a torch Stream.
+
+The first load is the span `kernels.load` (the nvcc build inside it when
+the library was not there), and a build that ran nvcc adds 1 to the
+counter `kernels.built` (utils/profiling.py::PROFILER).
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ import threading
 import time
 
 import torch
+
+from ..utils.profiling import PROFILER
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -213,6 +219,7 @@ def build(path: str) -> None:
                     os.remove(obj)
         BUILD_INFO = {"seconds": time.perf_counter() - t0,
                       "log": "\n".join(logs)}
+        PROFILER.count("kernels.built")
 
 
 def kernels():
@@ -224,6 +231,7 @@ def kernels():
     return _load()
 
 
+@PROFILER.span("kernels.load")
 def _load():
     global _lib
     with _lock:

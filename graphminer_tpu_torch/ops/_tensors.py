@@ -1,7 +1,11 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and buffers shared by the kernel wrappers, and the
+layouts' uploads."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..utils.profiling import PROFILER
 
 #: blocks per launch: enough to fill the H100's 132 SMs several times over;
 #: the kernels grid-stride over the rest
@@ -30,6 +34,14 @@ def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
         if cuda and not t.is_contiguous():
             raise ValueError(f"{name}: kernel needs contiguous tensors")
     return cuda
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A layout's host array copied to `device` at build, inside a
+    `build.upload` span (no synchronize: the span lasts as long as the
+    copy holds the host)."""
+    with PROFILER.span("build.upload"):
+        return torch.from_numpy(a).to(device)
 
 
 _WORKSPACES = {}

@@ -35,6 +35,7 @@ import numpy as np
 
 from ..core.device_graph import to_device
 from ..device import DeviceLike, resolve_device
+from ..utils.profiling import PROFILER
 from .cuda_gram import bit_gram, plan_gram
 from .hubcore import build_hub_layout
 
@@ -48,6 +49,7 @@ class Clique4Engine:
     plan on the device, and the sub-core tail counted once at build. A
     count is one G launch and an int64 sum."""
 
+    @PROFILER.span("build")
     def __init__(self, g, core: int = CORE, chunk: int = CHUNK,
                  device: DeviceLike = "cuda"):
         from ..core.plan import clique_plan
@@ -70,10 +72,11 @@ class Clique4Engine:
         self.src = to_device(src[incore], dev)
         self.dst = to_device(dst[incore], dev).view(-1, 1)
         self.tail_total = 0
-        if (~incore).any():
-            self.tail_total = count_pattern(
-                rg, clique_plan(4), chunk=chunk,
-                tasks=(src[~incore], dst[~incore]), device=dev)
+        with PROFILER.span("build.tail"):
+            if (~incore).any():
+                self.tail_total = count_pattern(
+                    rg, clique_plan(4), chunk=chunk,
+                    tasks=(src[~incore], dst[~incore]), device=dev)
 
     def gram_args(self):
         """(base, mask, keyword arguments) of the core-dst tasks' G call."""
@@ -87,11 +90,9 @@ class Clique4Engine:
         return bit_gram(base, mask, plan=self.gram_plan, **kw)
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_core_edges)
-        with PROFILER.phase("device_count", self.device):
-            total = self.core_partials().sum()
-        return int(total) + self.tail_total
+        return PROFILER.engine_count(lambda: self.core_partials().sum(),
+                                     self.device, self.n_core_edges) + \
+            self.tail_total
 
 
 def clique4_count_fast(g, core: int = CORE, chunk: int = CHUNK,

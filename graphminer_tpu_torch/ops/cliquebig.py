@@ -77,6 +77,8 @@ import torch
 from .. import native_bridge
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from ..utils.profiling import PROFILER
+from ._tensors import upload
 from .cliquek import _core_bitmaps
 from .cuda_cliquebig import quad_count, quad_emit, quad_offsets
 from .cuda_cliquek import lo_popcount, lo_runs
@@ -201,61 +203,67 @@ class CliqueBigEngine:
         from ..engine.frontier import count_pattern
         dev = resolve_device(device)
         self.device = dev
-        t0 = time.perf_counter()
-        rg = g if g.is_dag else \
-            g.relabel_by_degree(descending=False).orientation()
-        self.k = k
-        # deeper prefixes hold full-word y chains per level on the host;
-        # the edge chunk shrinks so that the worst level stays bounded
-        self.edge_chunk = max(256, edge_chunk >> (3 * (k - 6)))
-        v = rg.n_vertices
-        c = min(core, v)
-        cs = v - c
-        words = round_up(max(1, cdiv(c, 32)), 8)
-        self.c = c
-        self.words = words
-        hi = hi if hi is not None else max(HI6 >> (2 * (k - 6)), 32)
-        # the hi slice must reach the valid bits [0, c): hi_dim >=
-        # words*32 - c (the top bits are padding when c < words*32)
-        self.hi_words = min(max(1, hi // 32, words - c // 32), words)
-        self.lo_bits = (words - self.hi_words) * 32   # lo = bits [0, lo_bits)
-        self.hi_dim = self.hi_words * 32
+        with PROFILER.span("build") as build:
+            rg = g if g.is_dag else \
+                g.relabel_by_degree(descending=False).orientation()
+            self.k = k
+            # deeper prefixes hold full-word y chains per level on the host;
+            # the edge chunk shrinks so that the worst level stays bounded
+            self.edge_chunk = max(256, edge_chunk >> (3 * (k - 6)))
+            v = rg.n_vertices
+            c = min(core, v)
+            cs = v - c
+            words = round_up(max(1, cdiv(c, 32)), 8)
+            self.c = c
+            self.words = words
+            hi = hi if hi is not None else max(HI6 >> (2 * (k - 6)), 32)
+            # the hi slice must reach the valid bits [0, c): hi_dim >=
+            # words*32 - c (the top bits are padding when c < words*32)
+            self.hi_words = min(max(1, hi // 32, words - c // 32), words)
+            self.lo_bits = (words - self.hi_words) * 32  # lo = [0, lo_bits)
+            self.hi_dim = self.hi_words * 32
 
-        bm, core_np, _ = _core_bitmaps(rg, cs, c, words)
-        self.bm_np = bm
-        self.core_np = core_np
-        src, dst = rg.edge_list()
-        case_a = dst >= cs
-        self.n_edges = int(src.shape[0])
-        self.ea = src[case_a].astype(np.int64)
-        self.eb = dst[case_a].astype(np.int64)
-        self.n_core_edges = int(self.ea.shape[0])
+            bm, core_np, _ = _core_bitmaps(rg, cs, c, words)
+            self.bm_np = bm
+            self.core_np = core_np
+            with PROFILER.span("build.pack"):
+                src, dst = rg.edge_list()
+                case_a = dst >= cs
+                self.n_edges = int(src.shape[0])
+                self.ea = src[case_a].astype(np.int64)
+                self.eb = dst[case_a].astype(np.int64)
+                self.n_core_edges = int(self.ea.shape[0])
 
-        self.bm = torch.from_numpy(bm.view(np.int32)).to(dev)
-        self.core = self.bm[cs:]                    # = core_np, on the card
-        #: the core table's hi words (G's tab), and B_hh packed in place:
-        #: row i is core-local id lo_bits + i restricted to the hi words
-        self.core_hi = self.core[:, words - self.hi_words:]
-        self.hi_mask = self.core[self.lo_bits:, words - self.hi_words:]
-        self.gram_plan = plan_gram(self.hi_mask)
-        # each core edge's y₂ hi slice, on the card (rows gathered by edge
-        # row at count time)
-        y2hi = np.empty((self.n_core_edges, self.hi_words), dtype=np.uint32)
-        for s in range(0, self.n_core_edges, EXPAND_CHUNK):
-            a = self.ea[s:s + EXPAND_CHUNK]
-            b = self.eb[s:s + EXPAND_CHUNK]
-            y2hi[s:s + a.shape[0]] = \
-                (bm[a] & bm[b])[:, words - self.hi_words:]
-        self.y2hi = torch.from_numpy(y2hi.view(np.int32)).to(dev)
-        self.prep_s = time.perf_counter() - t0
+            self.bm = upload(bm.view(np.int32), dev)
+            self.core = self.bm[cs:]                # = core_np, on the card
+            #: the core table's hi words (G's tab), and B_hh packed in
+            #: place: row i is core-local id lo_bits + i restricted to the
+            #: hi words
+            self.core_hi = self.core[:, words - self.hi_words:]
+            self.hi_mask = self.core[self.lo_bits:, words - self.hi_words:]
+            self.gram_plan = plan_gram(self.hi_mask)
+            # each core edge's y₂ hi slice, on the card (rows gathered by
+            # edge row at count time)
+            with PROFILER.span("build.pack"):
+                y2hi = np.empty((self.n_core_edges, self.hi_words),
+                                dtype=np.uint32)
+                for s in range(0, self.n_core_edges, EXPAND_CHUNK):
+                    a = self.ea[s:s + EXPAND_CHUNK]
+                    b = self.eb[s:s + EXPAND_CHUNK]
+                    y2hi[s:s + a.shape[0]] = \
+                        (bm[a] & bm[b])[:, words - self.hi_words:]
+            self.y2hi = upload(y2hi.view(np.int32), dev)
 
-        t0 = time.perf_counter()
-        self.tail_total = 0
-        if tail and (~case_a).any():
-            self.tail_total = count_pattern(
-                rg, clique_plan(k), chunk=4096,
-                tasks=(src[~case_a], dst[~case_a]), device=dev)
-        self.tail_s = time.perf_counter() - t0
+            with PROFILER.span("build.tail") as tail_span:
+                self.tail_total = 0
+                if tail and (~case_a).any():
+                    self.tail_total = count_pattern(
+                        rg, clique_plan(k), chunk=4096,
+                        tasks=(src[~case_a], dst[~case_a]), device=dev)
+        #: host seconds of the build before the tail, and of the tail (the
+        #: spans build and build.tail)
+        self.prep_s = tail_span.start - build.start
+        self.tail_s = tail_span.seconds
 
         self._staging_bufs = None
         # statistics of the last count
@@ -362,52 +370,53 @@ class CliqueBigEngine:
         count_s and, on the native path, stream_s (host seconds of the hi
         part, its kernels enqueued, and of the lo part; at k = 6 also the
         hi part's steps, _hi6_device)."""
-        from ..utils.profiling import PROFILER
-        t0 = time.perf_counter()
-        k = self.k
-        self.n_hi_tasks = self.n_lo_tasks = self.n_tri_tasks = 0
-        self.dispatches = {}
-        self._events = {}
-        self._hi_acc = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._lo_acc = torch.zeros((), dtype=torch.int64, device=self.device)
-        self.native = native_bridge.get_lib() is not None
-        self.path = "host"
-        self.stream_s = {}
-        if self.native:
-            if not self._hi6_device():
-                for state in self._stream(k - 4, self.c, 3, ship=True):
-                    self._hi_state(state)
-            self.stream_s["hi"] = time.perf_counter() - t0
-            for tasks in self.lo_tasks():
-                self._lo(tasks)
-            self.stream_s["lo"] = time.perf_counter() - t0 - \
-                self.stream_s["hi"]
-        else:
-            hi_sink = _Sink(self._hi_numpy)
-            lo_sink = _Sink(self._lo_numpy)
-            for s0 in range(0, self.n_core_edges, self.edge_chunk):
-                a = self.ea[s0:s0 + self.edge_chunk]
-                b = self.eb[s0:s0 + self.edge_chunk]
-                rows = s0 + np.arange(a.shape[0], dtype=np.int64)
-                y2 = self.bm_np[a] & self.bm_np[b]
-                hr, hc = self._expand_prefixes(rows, y2, k - 4)
-                self.n_hi_tasks += int(hr.shape[0])
-                hi_sink.add(hr, hc)
-                lo_sink.add(*self._expand_lo_cliques(rows, y2, k - 3))
-            hi_sink.flush()
-            lo_sink.flush()
-        self.hi_total = int(self._hi_acc)
-        self.lo_total = int(self._lo_acc)
-        self.kernel_ms = {name: sum(a.elapsed_time(b) for a, b in pairs)
-                          for name, pairs in self._events.items()}
-        self.count_s = time.perf_counter() - t0
+        with PROFILER.span("count") as sp:
+            t0 = sp.start
+            k = self.k
+            self.n_hi_tasks = self.n_lo_tasks = self.n_tri_tasks = 0
+            self.dispatches = {}
+            self._events = {}
+            self._hi_acc = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+            self._lo_acc = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+            self.native = native_bridge.get_lib() is not None
+            self.path = "host"
+            self.stream_s = {}
+            if self.native:
+                if not self._hi6_device():
+                    for state in self._stream(k - 4, self.c, 3, ship=True):
+                        self._hi_state(state)
+                self.stream_s["hi"] = time.perf_counter() - t0
+                for tasks in self.lo_tasks():
+                    self._lo(tasks)
+                self.stream_s["lo"] = time.perf_counter() - t0 - \
+                    self.stream_s["hi"]
+            else:
+                hi_sink = _Sink(self._hi_numpy)
+                lo_sink = _Sink(self._lo_numpy)
+                for s0 in range(0, self.n_core_edges, self.edge_chunk):
+                    a = self.ea[s0:s0 + self.edge_chunk]
+                    b = self.eb[s0:s0 + self.edge_chunk]
+                    rows = s0 + np.arange(a.shape[0], dtype=np.int64)
+                    y2 = self.bm_np[a] & self.bm_np[b]
+                    hr, hc = self._expand_prefixes(rows, y2, k - 4)
+                    self.n_hi_tasks += int(hr.shape[0])
+                    hi_sink.add(hr, hc)
+                    lo_sink.add(*self._expand_lo_cliques(rows, y2, k - 3))
+                hi_sink.flush()
+                lo_sink.flush()
+            self.hi_total = int(self._hi_acc)
+            self.lo_total = int(self._lo_acc)
+            self.kernel_ms = {name: sum(a.elapsed_time(b) for a, b in pairs)
+                              for name, pairs in self._events.items()}
+        self.count_s = sp.seconds
         PROFILER.count("hi_tasks", self.n_hi_tasks)
         PROFILER.count("lo_tasks", self.n_lo_tasks)
-        PROFILER.seconds["count"] += self.count_s
         for name, ms in self.kernel_ms.items():
-            PROFILER.seconds[f"device_{name}"] += ms / 1e3
+            PROFILER.add(f"device_{name}", ms / 1e3)
         for name, sec in self.stream_s.items():
-            PROFILER.seconds[f"host_{name}"] += sec
+            PROFILER.add(f"host_{name}", sec)
         return self.hi_total + self.lo_total + self.tail_total
 
     def _hi6_device(self) -> bool:

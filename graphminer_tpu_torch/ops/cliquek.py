@@ -61,13 +61,13 @@ Left out, and why:
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from ..utils.profiling import PROFILER
+from ._tensors import upload
 from .cuda_cliquek import lo_popcount, lo_runs
 from .cuda_gram import bit_gram, plan_gram
 
@@ -83,6 +83,7 @@ LO_CHUNK = 4096
 # host-side layout + task enumeration (numpy, as in the JAX package)
 # --------------------------------------------------------------------------
 
+@PROFILER.span("build.pack")
 def _core_bitmaps(rg, cs: int, c: int, words: int):
     """(bm [V, words], C [c, words], INB [c, words]) uint32 host arrays:
     N+ ∩ core bitmaps for all vertices, core rows, core-internal
@@ -105,6 +106,7 @@ def _core_bitmaps(rg, cs: int, c: int, words: int):
     return bm, core, inb
 
 
+@PROFILER.span("build.enumerate")
 def _enum_tasks(bm: np.ndarray, core: np.ndarray, inb: np.ndarray,
                 ea: np.ndarray, eb: np.ndarray, c: int, lo_cut: int,
                 hi_words: int, k: int):
@@ -179,6 +181,7 @@ def _emit_all(bases, rows, attrs, words: int, n_bits: int, ncol: int,
             else np.zeros((0, ncol), np.int32))
 
 
+@PROFILER.span("build.enumerate")
 def _enum_tasks_native(bm, core, inb, ea, eb, c: int, lo_cut: int,
                        hi_words: int, k: int):
     """The native (C++/OpenMP) version of _enum_tasks' bit enumeration
@@ -301,75 +304,77 @@ class CliqueKEngine:
         from ..engine.frontier import count_pattern
         dev = resolve_device(device)
         self.device = dev
-        t0 = time.perf_counter()
-        rg = g if g.is_dag else \
-            g.relabel_by_degree(descending=False).orientation()
-        self.k = k
-        v = rg.n_vertices
-        c = min(core, v)
-        cs = v - c
-        words = round_up(max(1, cdiv(c, 32)), 8)
-        self.words = words
-        # hi slice must reach the valid bits [0, c): hi_dim >= words*32 - c
-        # (top bits are padding when c < the 8-word-rounded bit space)
-        self.hi_words = min(max(1, hi // 32, words - c // 32), words)
-        self.hi_dim = self.hi_words * 32
-        lo_cut = (words - self.hi_words) * 32      # word-aligned hi cut
+        with PROFILER.span("build") as build:
+            rg = g if g.is_dag else \
+                g.relabel_by_degree(descending=False).orientation()
+            self.k = k
+            v = rg.n_vertices
+            c = min(core, v)
+            cs = v - c
+            words = round_up(max(1, cdiv(c, 32)), 8)
+            self.words = words
+            # hi slice must reach the valid bits [0, c): hi_dim >=
+            # words*32 - c (top bits are padding when c < the 8-word-rounded
+            # bit space)
+            self.hi_words = min(max(1, hi // 32, words - c // 32), words)
+            self.hi_dim = self.hi_words * 32
+            lo_cut = (words - self.hi_words) * 32      # word-aligned hi cut
 
-        bm, core_np, inb = _core_bitmaps(rg, cs, c, words)
-        src, dst = rg.edge_list()
-        case_a = dst >= cs
-        self.n_edges = int(src.shape[0])
-        ea = src[case_a].astype(np.int64)
-        eb = dst[case_a].astype(np.int64)
-        self.n_core_edges = int(ea.shape[0])
+            bm, core_np, inb = _core_bitmaps(rg, cs, c, words)
+            with PROFILER.span("build.pack"):
+                src, dst = rg.edge_list()
+                case_a = dst >= cs
+                self.n_edges = int(src.shape[0])
+                ea = src[case_a].astype(np.int64)
+                eb = dst[case_a].astype(np.int64)
+                self.n_core_edges = int(ea.shape[0])
 
-        self.bm = torch.from_numpy(bm.view(np.int32)).to(dev)
-        self.core = self.bm[cs:]                   # = core_np, on the card
-        #: B_hh packed, read in place: row i is core-local id lo_cut + i
-        #: restricted to the hi words (G's mask), and its tile table
-        self.hi_mask = self.core[lo_cut:, words - self.hi_words:]
-        self.gram_plan = plan_gram(self.hi_mask)
+            self.bm = upload(bm.view(np.int32), dev)
+            self.core = self.bm[cs:]                   # = core_np, on the card
+            #: B_hh packed, read in place: row i is core-local id lo_cut + i
+            #: restricted to the hi words (G's mask), and its tile table
+            self.hi_mask = self.core[lo_cut:, words - self.hi_words:]
+            self.gram_plan = plan_gram(self.hi_mask)
 
-        nat = _enum_tasks_native(bm, core_np, inb, ea, eb, c, lo_cut,
-                                 self.hi_words, k)
-        #: whether the native enumerator ran (else the numpy one)
-        self.native = nat is not None
-        if nat is not None:
-            y2hi, tri, lo = nat
-        else:
-            y2hi, tri, lo = _enum_tasks(bm, core_np, inb, ea, eb, c, lo_cut,
-                                        self.hi_words, k)
-        self.n_tri = int(tri.shape[0])
-        self.n_lo = int(lo.shape[0])
-        if max(self.n_core_edges, self.n_tri) >= 1 << 31:
-            raise ValueError("int32 Gram entries count tasks: more than "
-                             "2^31 - 1 hi tasks")
-        #: int32 [n_core_edges, hi_words]: each core edge's y₂ hi slice
-        self.y2hi = torch.from_numpy(y2hi[:self.n_core_edges]).to(dev)
-        #: k = 5: the triangle tasks' edge rows, int32 [n_tri], and c ids,
-        #: int32 [n_tri, 1], in edge order
-        self.tri_rows = self.tri_cols = None
-        if k == 5:
-            self.tri_rows = torch.from_numpy(
-                np.ascontiguousarray(tri[:, 0])).to(dev)
-            self.tri_cols = torch.from_numpy(
-                np.ascontiguousarray(tri[:, 1:])).to(dev)
-        self.lo_cols = (torch.from_numpy(_pad_rows(lo, LO_CHUNK)).to(dev)
-                        if lo.size else None)
-        #: kernel L's run table of the lo tasks: the varying column is the
-        #: enumerator's innermost loop, d at k = 4 and c at k = 5, both
-        #: column 2
-        self.lo_runs = lo_runs(lo, 2, dev) if lo.size else None
-        self.prep_s = time.perf_counter() - t0
+            nat = _enum_tasks_native(bm, core_np, inb, ea, eb, c, lo_cut,
+                                     self.hi_words, k)
+            #: whether the native enumerator ran (else the numpy one)
+            self.native = nat is not None
+            if nat is not None:
+                y2hi, tri, lo = nat
+            else:
+                y2hi, tri, lo = _enum_tasks(bm, core_np, inb, ea, eb, c,
+                                            lo_cut, self.hi_words, k)
+            self.n_tri = int(tri.shape[0])
+            self.n_lo = int(lo.shape[0])
+            if max(self.n_core_edges, self.n_tri) >= 1 << 31:
+                raise ValueError("int32 Gram entries count tasks: more than "
+                                 "2^31 - 1 hi tasks")
+            #: int32 [n_core_edges, hi_words]: each core edge's y₂ hi slice
+            self.y2hi = upload(y2hi[:self.n_core_edges], dev)
+            #: k = 5: the triangle tasks' edge rows, int32 [n_tri], and c
+            #: ids, int32 [n_tri, 1], in edge order
+            self.tri_rows = self.tri_cols = None
+            if k == 5:
+                self.tri_rows = upload(np.ascontiguousarray(tri[:, 0]), dev)
+                self.tri_cols = upload(np.ascontiguousarray(tri[:, 1:]), dev)
+            self.lo_cols = (upload(_pad_rows(lo, LO_CHUNK), dev)
+                            if lo.size else None)
+            #: kernel L's run table of the lo tasks: the varying column is
+            #: the enumerator's innermost loop, d at k = 4 and c at k = 5,
+            #: both column 2
+            self.lo_runs = lo_runs(lo, 2, dev) if lo.size else None
 
-        t0 = time.perf_counter()
-        self.tail_total = 0
-        if tail and (~case_a).any():
-            self.tail_total = count_pattern(
-                rg, clique_plan(k), chunk=4096,
-                tasks=(src[~case_a], dst[~case_a]), device=dev)
-        self.tail_s = time.perf_counter() - t0
+            with PROFILER.span("build.tail") as tail_span:
+                self.tail_total = 0
+                if tail and (~case_a).any():
+                    self.tail_total = count_pattern(
+                        rg, clique_plan(k), chunk=4096,
+                        tasks=(src[~case_a], dst[~case_a]), device=dev)
+        #: host seconds of the build before the tail, and of the tail (the
+        #: spans build and build.tail)
+        self.prep_s = tail_span.start - build.start
+        self.tail_s = tail_span.seconds
 
     def hi_args(self):
         """(base, keyword arguments) of the hi tasks' rows, as kernels G and
@@ -393,11 +398,9 @@ class CliqueKEngine:
         return lo_popcount(self.bm, self.core, self.lo_runs)
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_core_edges)
-        with PROFILER.phase("device_count", self.device):
-            total = self.hi_partials().sum() + self.lo_partials().sum()
-        return int(total) + self.tail_total
+        return PROFILER.engine_count(
+            lambda: self.hi_partials().sum() + self.lo_partials().sum(),
+            self.device, self.n_core_edges) + self.tail_total
 
 
 def cliquek_count_fast(g, k: int, core: int = CORE, hi: int = 0,

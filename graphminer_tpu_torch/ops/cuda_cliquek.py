@@ -36,8 +36,9 @@ import numpy as np
 import torch
 
 from ..types import cdiv
+from ..utils.profiling import PROFILER
 from . import _build
-from ._tensors import BLOCK, PLAIN_ELEMS, on_cuda, popcount32
+from ._tensors import BLOCK, PLAIN_ELEMS, on_cuda, popcount32, upload
 
 MIN_ROWS, MAX_ROWS = 2, 8
 #: lanes a run (csrc/lo_popcount.cu::G)
@@ -82,6 +83,7 @@ class LoRuns:
         return 4 * (self.shared.numel() + self.starts.numel() + self.n)
 
 
+@PROFILER.span("build.pack")
 def lo_runs(cols: np.ndarray, vary_col: int = 2,
             device="cpu") -> LoRuns:
     """The run table of the task list cols int32 [n, nrow], in order: a
@@ -101,7 +103,7 @@ def lo_runs(cols: np.ndarray, vary_col: int = 2,
     head = np.repeat(np.cumsum(pieces) - pieces, pieces)
     first = np.repeat(first, pieces) + \
         (np.arange(pieces.sum()) - head) * MAX_RUN
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = lambda a: upload(np.ascontiguousarray(a), device)
     return LoRuns(shared=t(other[first]),
                   starts=t(np.append(first, n).astype(np.int32)),
                   vary=t(cols[:, vary_col]), vary_col=vary_col)

@@ -38,8 +38,9 @@ import numpy as np
 import torch
 
 from ..types import cdiv, round_up
+from ..utils.profiling import PROFILER
 from . import _build
-from ._tensors import PLAIN_ELEMS
+from ._tensors import PLAIN_ELEMS, upload
 from .cuda_expand import _packed_rows, _shapes, expand_bits_plain
 
 #: output tile side in bits (csrc/bit_gram.cu::T)
@@ -83,6 +84,7 @@ def tile_table(mask: np.ndarray, tile: int = TILE) -> np.ndarray:
     return np.ascontiguousarray(np.argwhere(hit), dtype=np.int32)
 
 
+@PROFILER.span("build.pack")
 def plan_gram(mask: torch.Tensor) -> GramPlan:
     """The tile table of `mask` (packed int32 rows [nm, hw]) on its device;
     built once per mask (one copy of the mask to the host)."""
@@ -90,7 +92,7 @@ def plan_gram(mask: torch.Tensor) -> GramPlan:
         raise ValueError(f"plan_gram: mask must be int32 [nm, hw], got "
                          f"{mask.dtype} {tuple(mask.shape)}")
     tiles = tile_table(mask.cpu().numpy())
-    return GramPlan(tiles=torch.from_numpy(tiles).to(mask.device),
+    return GramPlan(tiles=upload(tiles, mask.device),
                     dim=32 * mask.shape[1])
 
 

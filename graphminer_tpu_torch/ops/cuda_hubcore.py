@@ -37,8 +37,9 @@ import numpy as np
 import torch
 
 from ..types import SENTINEL
+from ..utils.profiling import PROFILER
 from . import _build
-from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
+from ._tensors import PLAIN_ELEMS, on_cuda, popcount32, upload
 from ._tiles import plan_tiles
 
 #: tasks per tile of kernel E: ~3,100 tiles over the 784,532 rmat18 tail
@@ -96,6 +97,7 @@ def tail_count_shapes(groups, ns: int, nd: int,
     return out
 
 
+@PROFILER.span("build.pack")
 def plan_tail_count(tables, group_arrays, spec, words: int) -> TailCountPlan:
     """The plan of an engine's tail groups: tables has src_rows and
     dst_rows (TailTables); group_arrays and spec are pack_groups' output
@@ -124,10 +126,9 @@ def plan_tail_count(tables, group_arrays, spec, words: int) -> TailCountPlan:
                     np.int64).reshape(-1, TAIL_BREC)
     tiles = plan_tiles([n for n, _, _ in shapes], [1] * len(shapes),
                        TAIL_TILE)
-    table = torch.from_numpy(np.concatenate([recs.reshape(-1),
-                                             tiles.reshape(-1)]))
+    table = np.concatenate([recs.reshape(-1), tiles.reshape(-1)])
     return TailCountPlan(src_rows, dst_rows, words, groups,
-                         table.to(src_rows.device), tiles.shape[0])
+                         upload(table, src_rows.device), tiles.shape[0])
 
 
 def hub_tail_count_all(plan: TailCountPlan) -> torch.Tensor:

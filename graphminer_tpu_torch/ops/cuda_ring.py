@@ -40,8 +40,9 @@ import numpy as np
 import torch
 
 from ..types import SENTINEL
+from ..utils.profiling import PROFILER
 from . import _build
-from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
+from ._tensors import PLAIN_ELEMS, on_cuda, popcount32, upload
 from ._tiles import plan_tiles
 
 
@@ -188,6 +189,7 @@ class PhaseCPlan:
     device: torch.device
 
 
+@PROFILER.span("build.pack")
 def plan_phase_c(groups: Sequence[Tuple[torch.Tensor, ...]],
                  device=None) -> PhaseCPlan:
     """The plan of one layout's kernel-B buckets, each (table, src_bm,
@@ -223,9 +225,9 @@ def plan_phase_c(groups: Sequence[Tuple[torch.Tensor, ...]],
                       s.shape[1], d.shape[1], int(st))
                      for (t, s, d), st in zip(groups, staged)], np.int64)
     dev = tensors[0].device
-    table = torch.from_numpy(np.concatenate(
-        [recs.reshape(-1), tiles.reshape(-1), block_tiles]))
-    return PhaseCPlan(groups, table.to(dev), torch.from_numpy(items).to(dev),
+    table = np.concatenate([recs.reshape(-1), tiles.reshape(-1),
+                            block_tiles])
+    return PhaseCPlan(groups, upload(table, dev), upload(items, dev),
                       tiles.shape[0], n_parts, stage_rows,
                       phase_c_l2_bytes(units, staged, [t.shape[0] for t, _, _
                                                        in groups],
@@ -367,6 +369,7 @@ def _check_group(ta, tb, sa, sb):
                          f"{tuple(sb.shape)}")
 
 
+@PROFILER.span("build.pack")
 def plan_tail_pairs(groups: Sequence[Tuple[torch.Tensor, ...]],
                     device=None) -> TailPlan:
     """The plan of one layout's tail-pair buckets, each (table_a, table_b,
@@ -385,9 +388,8 @@ def plan_tail_pairs(groups: Sequence[Tuple[torch.Tensor, ...]],
     recs[:, [0, 1, 3, 4, 6, 7]] = [
         (ta.data_ptr(), ta.shape[0], tb.data_ptr(), tb.shape[0],
          sa.data_ptr(), sb.data_ptr()) for ta, tb, sa, sb in groups]
-    table = torch.from_numpy(np.concatenate([recs.reshape(-1),
-                                             tiles.reshape(-1)]))
-    return TailPlan(groups, table.to(tensors[0].device), tiles.shape[0],
+    table = np.concatenate([recs.reshape(-1), tiles.reshape(-1)])
+    return TailPlan(groups, upload(table, tensors[0].device), tiles.shape[0],
                     region, tensors[0].device)
 
 

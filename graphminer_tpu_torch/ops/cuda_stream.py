@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ..types import SENTINEL
+from ..utils.profiling import PROFILER
 from . import _build
-from ._tensors import PLAIN_ELEMS, on_cuda, popcount32
+from ._tensors import PLAIN_ELEMS, on_cuda, popcount32, upload
 from ._tiles import fastdiv, plan_tiles
 
 #: 16-byte src chunks per tile (128 KB): ~16,000 tiles over the 2.1 GB
@@ -87,6 +88,7 @@ def _check_bucket(dst_rows, src_rows, ws, wtv):
                          f" src {tuple(src_rows.shape)} ws={ws} wtv={wtv}")
 
 
+@PROFILER.span("build.pack")
 def plan_stream(buckets: Sequence[Tuple[torch.Tensor, torch.Tensor, int, int]],
                 device=None) -> StreamPlan:
     """The plan of one layout: buckets are (dst_rows, src_rows, ws, wtv),
@@ -110,10 +112,9 @@ def plan_stream(buckets: Sequence[Tuple[torch.Tensor, torch.Tensor, int, int]],
          for d, s, ws, _ in buckets])
     recs[:, 0] = [d.data_ptr() for d, _, _, _ in buckets]
     recs[:, 1] = [s.data_ptr() for _, s, _, _ in buckets]
-    table = torch.from_numpy(np.concatenate([recs.reshape(-1),
-                                             tiles.reshape(-1)]))
-    return StreamPlan(buckets, table.to(tensors[0].device), tiles.shape[0],
-                      tensors[0].device)
+    table = np.concatenate([recs.reshape(-1), tiles.reshape(-1)])
+    dev = tensors[0].device
+    return StreamPlan(buckets, upload(table, dev), tiles.shape[0], dev)
 
 
 def stream_count_all(plan: StreamPlan) -> torch.Tensor:

@@ -44,6 +44,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from ..utils.profiling import PROFILER
+from ._tensors import upload
 from .cuda_expand import expand_bits
 from .cuda_gram import bit_gram, plan_gram
 from .cuda_hubcore import hub_tail_count, hub_tail_count_all, plan_tail_count
@@ -74,6 +76,7 @@ class HubLayout:
         return self.words + self.wt_pad
 
 
+@PROFILER.span("build.pack")
 def build_hub_layout(g, core: int = DEFAULT_CORE,
                      device: DeviceLike = "cuda") -> HubLayout:
     """g must be relabel_by_degree(descending=False).orientation() output."""
@@ -110,7 +113,7 @@ def build_hub_layout(g, core: int = DEFAULT_CORE,
         tpart[tu, slot] = tv
         table[:, words:] = tpart.view(np.uint32)
 
-    table_d = torch.from_numpy(table.view(np.int32)).to(dev)
+    table_d = upload(table.view(np.int32), dev)
     return HubLayout(table=table_d, words=words, core_start=cs, core_size=c,
                      wt_pad=wt_pad, t_width=t_width, n_vertices=v)
 
@@ -148,10 +151,10 @@ def bucket_tail_tasks(layout: HubLayout, src: np.ndarray, dst: np.ndarray):
     ud, di = np.unique(dst, return_inverse=True)
     dev = layout.table.device
     tables = TailTables(
-        src_rows=layout.table.index_select(
-            0, torch.from_numpy(us.astype(np.int64)).to(dev)),
-        dst_rows=layout.table.index_select(
-            0, torch.from_numpy(ud.astype(np.int64)).to(dev)))
+        src_rows=layout.table.index_select(0, upload(us.astype(np.int64),
+                                                     dev)),
+        dst_rows=layout.table.index_select(0, upload(ud.astype(np.int64),
+                                                     dev)))
     si = si.astype(np.int32)
     di = di.astype(np.int32)
     wa = t_class_of(layout.t_width[src])
@@ -188,8 +191,8 @@ def pack_groups(groups, chunk: int = DEFAULT_CHUNK,
         pad = n_chunks * ck - n
         s = np.pad(src.astype(np.int32), (0, pad), constant_values=SENTINEL)
         d = np.pad(dst.astype(np.int32), (0, pad), constant_values=SENTINEL)
-        arrs.append((torch.from_numpy(s.reshape(n_chunks, ck)).to(dev),
-                     torch.from_numpy(d.reshape(n_chunks, ck)).to(dev)))
+        arrs.append((upload(s.reshape(n_chunks, ck), dev),
+                     upload(d.reshape(n_chunks, ck), dev)))
         spec.append((wa, wb, ck))
     return tuple(arrs), tuple(spec)
 
@@ -292,6 +295,7 @@ class TriangleEngine:
       * the tail groups — only edges with BOTH endpoints outside the core
         (popcount + short tail compare, one launch of kernel E)."""
 
+    @PROFILER.span("build")
     def __init__(self, g, core: int = DEFAULT_CORE,
                  chunk: int = DEFAULT_CHUNK, tile: int = 512,
                  device: DeviceLike = "cuda"):
@@ -329,7 +333,7 @@ class TriangleEngine:
         keep = np.nonzero(deg - lay.t_width >= 2)[0]
         n = round_up(max(int(keep.shape[0]), 1), tile)
         rows = lay.table[:, :lay.words].index_select(
-            0, torch.from_numpy(keep.astype(np.int64)).to(lay.table.device))
+            0, upload(keep.astype(np.int64), lay.table.device))
         return torch.nn.functional.pad(rows, (0, 0, 0, n - keep.shape[0]))
 
     def tail_partials(self) -> torch.Tensor:
@@ -361,11 +365,9 @@ class TriangleEngine:
         return int(self.core_partials().sum())
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_edges)
-        with PROFILER.phase("device_count", self.device):
-            total = self.tail_partials().sum() + self.core_partials().sum()
-        return int(total)
+        return PROFILER.engine_count(
+            lambda: self.tail_partials().sum() + self.core_partials().sum(),
+            self.device, self.n_edges)
 
 
 def triangle_count_fast(g, core: int = DEFAULT_CORE,

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..device import DeviceLike
+from ..utils.profiling import PROFILER
 from . import ring as _ring
 from . import stream as _stream
 from .cuda_ring import plan_phase_c, ring_phase_c_all
@@ -49,6 +50,7 @@ class HybridEngine:
     Parity: the fused fast path for src/triangle (omp_base.cc:5-27,
     bs_warp_edge.cuh) — every DAG edge (u,v) contributes |N+(u) ∩ N+(v)|."""
 
+    @PROFILER.span("build")
     def __init__(self, g, core: int = _ring.CORE,
                  device: DeviceLike = "cuda"):
         rg = (g if g.is_dag
@@ -106,12 +108,9 @@ class HybridEngine:
         return torch.cat(parts)
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_edges)
-        PROFILER.count("set_ops_level2", self.n_edges)  # 1 intersection/task
-        with PROFILER.phase("device_count", self.device):
-            total = self.partials().sum()
-        return int(total)
+        # one level-2 intersection a task
+        return PROFILER.engine_count(lambda: self.partials().sum(),
+                                     self.device, self.n_edges, self.n_edges)
 
 
 def triangle_count_hybrid_tier(g, core: int = _ring.CORE,

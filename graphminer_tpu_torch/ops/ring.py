@@ -34,6 +34,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from ..utils.profiling import PROFILER
+from ._tensors import upload
 from .cuda_ring import (plan_phase_c, plan_tail_pairs, ring_phase_c_all,
                         ring_tail_pairs_all)
 
@@ -129,7 +131,7 @@ class RingLayout:
         dst_loc, row_tasks) per bucket; tbuckets: one (ta, tv, src_slot,
         dst_slot, n_tasks) per bucket."""
         dev = resolve_device(device)
-        t = lambda a: torch.from_numpy(np.array(a, np.int32)).to(dev)
+        t = lambda a: upload(np.array(a, np.int32), dev)
         cb = lambda bs: tuple(
             CBucket(wc=int(wc), src_bm=t(bm), dst_loc=t(dl),
                     n_tasks=int(np.asarray(rt).sum()),
@@ -184,8 +186,8 @@ def _bucket_by_src(wsrc: np.ndarray, starts: np.ndarray, cols: np.ndarray,
         bm[:n_d] = src_rows[m]
         rt = np.zeros(n_pad, dtype=np.int32)
         rt[:n_d] = ln
-        out.append(CBucket(wc=int(k), src_bm=torch.from_numpy(bm).to(dev),
-                           dst_loc=torch.from_numpy(dl).to(dev),
+        out.append(CBucket(wc=int(k), src_bm=upload(bm, dev),
+                           dst_loc=upload(dl, dev),
                            n_tasks=int(ln.sum()), row_tasks=rt))
     return out
 
@@ -202,6 +204,7 @@ def _gather_lists(rowptr, colidx, vids: np.ndarray, width: int,
     return out
 
 
+@PROFILER.span("build.pack")
 def build_ring(g, core: int = CORE, c_classes=C_CLASSES,
                b_classes=B_CLASSES, t_classes=T_CLASSES,
                phases: str = "CT", device: DeviceLike = "cuda") -> RingLayout:
@@ -252,7 +255,7 @@ def build_ring(g, core: int = CORE, c_classes=C_CLASSES,
         # DENSE bitmap table: only vertices with a non-zero core bitmap
         # (the csrc set) have rows — dst slots store the csrc RANK, and
         # tasks whose dst has an all-zero bitmap (contribute 0) are dropped
-        bm_table = torch.from_numpy(src_bm_all).to(dev)
+        bm_table = upload(src_bm_all, dev)
 
         # bbuckets: tail tasks grouped by src (tasks are src-major already);
         # keep only tasks where BOTH endpoints have non-zero core bitmaps
@@ -285,7 +288,7 @@ def build_ring(g, core: int = CORE, c_classes=C_CLASSES,
             rows = _gather_lists(rg.rowptr, rg.colidx, mem, int(k),
                                  round_up(mem.size, 8))
             rows = np.where((rows != SENTINEL) & (rows < cs), rows, SENTINEL)
-            tail_tables.append(torch.from_numpy(rows.astype(np.int32)).to(dev))
+            tail_tables.append(upload(rows.astype(np.int32), dev))
         # tail-compare buckets: both sides with non-empty tails
         both = (tw[tsrc] > 0) & (tw[tdst] > 0)
         bs, bd = tsrc[both], tdst[both]
@@ -305,8 +308,8 @@ def build_ring(g, core: int = CORE, c_classes=C_CLASSES,
                 sl_a[:n_d] = slot[bs[b:e]]
                 sl_v[:n_d] = slot[bd[b:e]]
                 tbuckets.append(TBucket(ta=ia, tv=iv,
-                                        src_slot=torch.from_numpy(sl_a).to(dev),
-                                        dst_slot=torch.from_numpy(sl_v).to(dev),
+                                        src_slot=upload(sl_a, dev),
+                                        dst_slot=upload(sl_v, dev),
                                         n_tasks=n_d))
 
     # core rows [cs, v): out-neighbors all in core (closure under ascending
@@ -321,7 +324,7 @@ def build_ring(g, core: int = CORE, c_classes=C_CLASSES,
         np.bitwise_or.at(core_bm, (csrc2, ccl >> 5),
                          np.uint32(1) << (ccl & 31).astype(np.uint32))
 
-    return RingLayout(core_bm=torch.from_numpy(core_bm.view(np.int32)).to(dev),
+    return RingLayout(core_bm=upload(core_bm.view(np.int32), dev),
                       bm_table=bm_table, tail_tables=tuple(tail_tables),
                       words=words, core_start=cs, core_size=c,
                       cbuckets=tuple(cbuckets), bbuckets=tuple(bbuckets),
@@ -336,6 +339,7 @@ class RingEngine:
     Parity: the fused fast path for src/triangle (omp_base.cc:5-27,
     bs_warp_edge.cuh) at O(V·row + E·4B) device memory."""
 
+    @PROFILER.span("build")
     def __init__(self, g, core: int = CORE, device: DeviceLike = "cuda"):
         self._attach(build_ring(g, core=core, device=device))
 
@@ -369,12 +373,9 @@ class RingEngine:
                           ring_tail_pairs_all(self.tail_plan)])
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_edges)
-        PROFILER.count("set_ops_level2", self.n_edges)  # 1 intersection/task
-        with PROFILER.phase("device_count", self.device):
-            total = self.partials().sum()
-        return int(total)
+        # one level-2 intersection a task
+        return PROFILER.engine_count(lambda: self.partials().sum(),
+                                     self.device, self.n_edges, self.n_edges)
 
 
 def triangle_count_ring(g, core: int = CORE, device: DeviceLike = "cuda") -> int:

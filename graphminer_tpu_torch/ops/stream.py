@@ -37,6 +37,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..types import SENTINEL, cdiv, round_up
+from ..utils.profiling import PROFILER
+from ._tensors import upload
 from .cuda_stream import plan_stream, stream_count_all
 from .hubcore import HubLayout, build_hub_layout
 
@@ -96,7 +98,7 @@ class StreamLayout:
         JAX package's StreamLayout). buckets: one (spec, dst_rows, src_rows,
         row_tasks) per bucket, spec = (width, wtv, wta, ws)."""
         dev = resolve_device(device)
-        t = lambda a: torch.from_numpy(np.array(a, np.int32)).to(dev)
+        t = lambda a: upload(np.array(a, np.int32), dev)
         v = int(table.shape[0])
         lay = HubLayout(
             table=t(table),
@@ -150,6 +152,7 @@ def _materialize(table: torch.Tensor, dsts: torch.Tensor,
     return rows_d, rows_s
 
 
+@PROFILER.span("build.pack")
 def build_stream(g, core: int = 4096, classes=WIDTH_CLASSES,
                  wtv_classes=WTV_CLASSES, dst_below: Optional[int] = None,
                  plan_only: bool = False, device: DeviceLike = "cuda"):
@@ -281,8 +284,8 @@ def build_stream(g, core: int = 4096, classes=WIDTH_CLASSES,
                     si = np.pad(si, ((0, n_pad - n_d), (0, 0)),
                                 constant_values=SENTINEL)
                     dst_rows, src_rows = _materialize(
-                        lay.table, torch.from_numpy(dsts_b).to(dev),
-                        torch.from_numpy(si).to(dev), width=wc, words=words,
+                        lay.table, upload(dsts_b, dev), upload(si, dev),
+                        width=wc, words=words,
                         wtv=int(wtvc), wta=wta, ws=int(wsc))
                     # padded dst rows may alias vertex 0; zero their
                     # bitmap+T so they cannot pair with padded src slots
@@ -310,6 +313,7 @@ class StreamEngine:
     bs_warp_edge.cuh) — every DAG edge (u,v) contributes
     |N+(u) ∩ N+(v)|; the sum is the exact triangle count."""
 
+    @PROFILER.span("build")
     def __init__(self, g, core: int = 4096, classes=WIDTH_CLASSES,
                  wtv_classes=WTV_CLASSES, device: DeviceLike = "cuda"):
         self._attach(build_stream(g, core=core, classes=classes,
@@ -338,12 +342,9 @@ class StreamEngine:
         return stream_count_all(self.plan)
 
     def count(self) -> int:
-        from ..utils.profiling import PROFILER
-        PROFILER.count("edge_tasks", self.n_edges)
-        PROFILER.count("set_ops_level2", self.n_edges)  # 1 intersection/task
-        with PROFILER.phase("device_count", self.device):
-            total = self.partials().sum()
-        return int(total)
+        # one level-2 intersection a task
+        return PROFILER.engine_count(lambda: self.partials().sum(),
+                                     self.device, self.n_edges, self.n_edges)
 
 
 def triangle_count_stream(g, core: int = 4096, device: DeviceLike = "cuda",

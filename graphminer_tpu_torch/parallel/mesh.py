@@ -170,8 +170,8 @@ def count_pattern_sharded(g, plan: Plan, mesh: Optional[Mesh] = None,
     for w, dev in enumerate(mesh.devices.flat):
         by_device.setdefault(dev, []).append(w)
 
-    def run(dev, ws):
-        with _on_device(dev):
+    def run(card, dev, ws):
+        with PROFILER.span("sharded.card", card=card), _on_device(dev):
             dg = DeviceGraph.from_host(g, device=dev)
             parts = [_count_shard(dg, plan, to_device(shards[w][0], dev),
                                   to_device(shards[w][1], dev), chunk=chunk,
@@ -180,14 +180,15 @@ def count_pattern_sharded(g, plan: Plan, mesh: Optional[Mesh] = None,
             return [int(p) for p in parts]
 
     PROFILER.count("edge_tasks", int(src.shape[0]))
-    with PROFILER.phase("sharded_count"):
-        if len(by_device) == 1:
-            partials = run(*next(iter(by_device.items())))
+    cards = list(enumerate(by_device.items()))
+    with PROFILER.span("sharded_count"):
+        if len(cards) == 1:
+            partials = run(0, *cards[0][1])
         else:
             with concurrent.futures.ThreadPoolExecutor(
-                    max_workers=len(by_device)) as ex:
-                futures = [ex.submit(run, dev, ws)
-                           for dev, ws in by_device.items()]
+                    max_workers=len(cards)) as ex:
+                futures = [ex.submit(run, i, dev, ws)
+                           for i, (dev, ws) in cards]
                 partials = [p for f in futures for p in f.result()]
     total = int(np.asarray(partials, dtype=np.int64).sum())
     return total // plan.multiplicity

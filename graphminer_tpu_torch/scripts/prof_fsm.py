@@ -88,8 +88,7 @@ def main(argv=None) -> list:
     g = labelled_rmat(a.scale)
     out = []
     for minsup in a.minsup:
-        PROFILER.seconds.clear()
-        PROFILER.counters.clear()
+        PROFILER.reset()
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()

@@ -1,16 +1,29 @@
-"""Profiling utilities: named phase timers and op counters.
+"""Profiling utilities: the port's spans and counters, and bounds.
 
 The counterpart of graphminer_tpu/utils/profiling.py. Parity: include/timer.h
 (Timer + TIME_OP), the per-phase timer arrays (fsm/omp_base.cc timers[0..5])
-and the per-set-op counters (common.h:72-74). A phase that runs on a CUDA
-device is timed with torch.cuda.Event pairs on the current stream, so it
-measures device time and not the host's enqueue; a CPU phase uses the host
-clock. time_ms times a repeated call the same way (on the card the event
-pair also spans the host's dispatch of the call), device_ms gives the
-device time alone and the device operations a call runs (torch.profiler),
-bound_ms gives the least time an H100 SXM could take for a given work, and
-gram_bounds, quad_bytes and quad_count_bytes put kernel G's and kernel Q's
-work in its terms, and tri_bitmap_bytes, tri_probe_bytes, tri_lists_bytes,
+and the per-set-op counters (common.h:72-74).
+
+PROFILER is the one span API of the port: `PROFILER.span(name)` times a
+block on time.perf_counter() (the benchmark's host clock), keeps per-name
+totals and self times (a span's time less the time its children cover) and
+a bounded buffer of span records (name, start, end, self time, parent,
+thread), and, while a torch.profiler records, opens
+torch.profiler.record_function(name), which puts the span among the
+profiler's host events, on one clock with the device's. A span on a count
+path (`hot=True`) records only while tracing is on: a torch.profiler
+records or `PROFILER.enabled` is set (the CLI's --profile sets it); off,
+it costs one check. `PROFILER.engine_count` is the count path of every
+engine with int64 partials on the device. Only `PROFILER.enabled` adds a
+CUDA event pair and its synchronize (the `device_count` phase); no span
+synchronizes otherwise.
+
+time_ms times a repeated call (on the card the event pair also spans the
+host's dispatch of the call), device_ms gives the device time alone and
+the device operations a call runs (torch.profiler), bound_ms gives the
+least time an H100 SXM could take for a given work, and gram_bounds,
+quad_bytes and quad_count_bytes put kernel G's and kernel Q's work in its
+terms, and tri_bitmap_bytes, tri_probe_bytes, tri_lists_bytes,
 colsum_bytes and colsum_pairs_bytes kernels S's, P's, I's and W's (write
 and pairs modes).
 Left out: xla_trace (torch.profiler is the tool on the card).
@@ -18,81 +31,181 @@ Left out: xla_trace (torch.profiler is the tool on the card).
 from __future__ import annotations
 
 import contextlib
-import json
+import itertools
 import statistics
+import threading
 import time
-from collections import Counter, defaultdict
-from typing import Dict, Optional
+from collections import Counter, defaultdict, deque
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+#: span records a profiler keeps (the newest)
+SPAN_CAPACITY = 65536
 
-class Timer:
-    """Accumulating wall-clock timer (timer.h:6-44)."""
 
-    def __init__(self):
-        self.total = 0.0
-        self._t0 = None
+class SpanRecord(NamedTuple):
+    """One closed span: its name, start and end on time.perf_counter() (s),
+    its self time (s), its id, its parent's id (None at the top of its
+    thread), its thread's ident and the attributes it was given."""
+    name: str
+    start: float
+    end: float
+    self_s: float
+    id: int
+    parent: Optional[int]
+    thread: int
+    attrs: Optional[dict]
 
-    def start(self):
-        self._t0 = time.perf_counter()
-        return self
 
-    def stop(self):
-        self.total += time.perf_counter() - self._t0
-        self._t0 = None
-        return self.total
+class _Frame:
+    """An open span; after it closes, `end` and `seconds` (its duration)
+    are set."""
+    __slots__ = ("id", "start", "child_s", "end", "seconds")
 
-    @property
-    def seconds(self) -> float:
-        return self.total
+    def __init__(self, span_id: int):
+        self.id, self.child_s = span_id, 0.0
+        self.end = self.seconds = None
+        self.start = time.perf_counter()
 
 
 class Profiler:
-    """Named phase timers + op counters; one per run."""
+    """Spans, their totals and records, and op counters; one per process
+    (PROFILER). Totals, counters and records are guarded by one lock, so
+    threads may share it; each thread keeps its own stack of open spans."""
 
-    def __init__(self):
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        #: the CLI's --profile: count-path spans record, and a count adds
+        #: the device_count phase from a CUDA event pair (a synchronize)
+        self.enabled = False
         self.seconds: Dict[str, float] = defaultdict(float)
+        self.self_seconds: Dict[str, float] = defaultdict(float)
         self.counters: Dict[str, int] = defaultdict(int)
+        self.records = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count()
+
+    def tracing(self) -> bool:
+        """Whether count-path spans record: `enabled`, or a torch.profiler
+        is recording."""
+        return self.enabled or torch.autograd._profiler_enabled()
+
+    def _stack(self) -> List[_Frame]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
 
     @contextlib.contextmanager
-    def phase(self, name: str, device: Optional[torch.device] = None):
-        """Time the block. With a CUDA `device`, the time is the device
-        time between two events recorded on the current stream (the exit
-        synchronizes on the end event); otherwise the host clock."""
-        if device is not None and torch.device(device).type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            try:
-                yield
-            finally:
-                end.record()
-                end.synchronize()
-                self.seconds[name] += start.elapsed_time(end) / 1e3
+    def span(self, name: str, device=None, *, hot: bool = False, **attrs):
+        """Time the block as the span `name`, a child of the innermost span
+        open in this thread; yields its frame (None when a `hot` span does
+        not record). With `enabled` and a CUDA `device`, its total is the
+        device time between two CUDA events on the current stream (the
+        exit synchronizes on the end event); otherwise the host clock. As
+        a decorator, it makes each call of the function a span."""
+        profiling = torch.autograd._profiler_enabled()
+        if hot and not (profiling or self.enabled):
+            yield None
             return
-        t = Timer().start()
+        rf = None
+        if profiling:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+        events = None
+        if (self.enabled and device is not None
+                and torch.device(device).type == "cuda"):
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        stack = self._stack()
+        frame = _Frame(next(self._ids))
+        parent = stack[-1] if stack else None
+        stack.append(frame)
         try:
-            yield
+            yield frame
         finally:
-            self.seconds[name] += t.stop()
+            total = None
+            if events is not None:
+                events[1].record()
+                events[1].synchronize()
+                total = events[0].elapsed_time(events[1]) / 1e3
+            frame.end = time.perf_counter()
+            frame.seconds = frame.end - frame.start
+            stack.pop()
+            if parent is not None:
+                parent.child_s += frame.seconds
+            self_s = frame.seconds - frame.child_s
+            rec = SpanRecord(name, frame.start, frame.end, self_s, frame.id,
+                             None if parent is None else parent.id,
+                             threading.get_ident(), attrs or None)
+            with self._lock:
+                self.seconds[name] += frame.seconds if total is None \
+                    else total
+                self.self_seconds[name] += self_s
+                self.records.append(rec)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Add time measured elsewhere (a CUDA event pair, a host step) to
+        the totals and self times of `name`; no record."""
+        with self._lock:
+            self.seconds[name] += seconds
+            self.self_seconds[name] += seconds
 
     def count(self, name: str, n: int = 1):
-        self.counters[name] += n
+        with self._lock:
+            self.counters[name] += n
+
+    def engine_count(self, launch: Callable[[], torch.Tensor], device,
+                     edge_tasks: int, set_ops: int = 0) -> int:
+        """The count path of an engine: launch() enqueues the partials and
+        their sum (an int64 scalar on `device`), and the sum is read back
+        as an int. Counts edge_tasks, and set_ops_level2 when set_ops is
+        given. While tracing, the span `count` holds `count.launch` (the
+        enqueue) and `count.readback` (the int()); with `enabled`, they
+        sit inside the `device_count` phase (its device time on a CUDA
+        device, a CUDA event pair; the host clock on the CPU)."""
+        self.count("edge_tasks", edge_tasks)
+        if set_ops:
+            self.count("set_ops_level2", set_ops)
+        if not self.tracing():
+            return int(launch())
+        phase = (self.span("device_count", device) if self.enabled
+                 else contextlib.nullcontext())
+        with self.span("count"), phase:
+            with self.span("count.launch"):
+                total = launch()
+            with self.span("count.readback"):
+                return int(total)
+
+    def span_records(self) -> List[SpanRecord]:
+        """The span records kept, oldest first."""
+        with self._lock:
+            return list(self.records)
+
+    def reset(self) -> None:
+        """Forget every total, self time, counter and record."""
+        with self._lock:
+            self.seconds.clear()
+            self.self_seconds.clear()
+            self.counters.clear()
+            self.records.clear()
 
     def report(self) -> Dict:
-        return {
-            "phases_s": {k: round(v, 6) for k, v in self.seconds.items()},
-            "counters": dict(self.counters),
-        }
+        with self._lock:
+            return {
+                "phases_s": {k: round(v, 6) for k, v in self.seconds.items()},
+                "phases_self_s": {k: round(v, 6)
+                                  for k, v in self.self_seconds.items()},
+                "counters": dict(self.counters),
+            }
 
-    def dump(self) -> str:
-        return json.dumps(self.report(), sort_keys=True)
 
-
-# process-wide default profiler (opt-in; hot paths don't touch it unless
-# callers pass it down)
+#: the process's profiler
 PROFILER = Profiler()
 
 

@@ -176,7 +176,7 @@ def _forward_extend_dev(dg: DeviceGraph, vlab, buf_p, n_p: int, at: int,
     buf_c = out[:, :cap_c]
     if n_c > cap_c:
         return buf_c, n_c, None
-    with PROFILER.phase("fsm_support"):
+    with PROFILER.span("fsm_support"):
         sup = _sync(_mni_support_device(buf_c, n_c))
     return buf_c, n_c, sup
 
@@ -205,7 +205,7 @@ def _backward_filter_dev(dg: DeviceGraph, buf, n: int, p: int, q: int,
             ok = setops.connected(vq, rows)
         off = off + _append(out, off, blk, ok, cap)
     n_c = _sync(off)
-    with PROFILER.phase("fsm_support"):
+    with PROFILER.span("fsm_support"):
         sup = _sync(_mni_support_device(out, n_c))
     return out, n_c, sup
 
@@ -310,7 +310,7 @@ class _FSM:
             return 0
         if de.sup is not None:
             return de.sup
-        with PROFILER.phase("fsm_support"):
+        with PROFILER.span("fsm_support"):
             return _sync(_mni_support_device(de.buf, de.n))
 
     def initial_patterns(self) -> Dict[tuple, tuple]:
@@ -341,11 +341,11 @@ class _FSM:
     def forward_extend(self, de: DevEmb, at: int, label: int,
                        elabel: int = 0) -> DevEmb:
         PROFILER.count("fsm_extensions")
-        with PROFILER.phase("fsm_extend"):
+        with PROFILER.span("fsm_extend"):
             w, bound = self._call_width(de, at, label)
         cap_c = _cap_for(max(bound, 1))
         while True:
-            with PROFILER.phase("fsm_extend"):
+            with PROFILER.span("fsm_extend"):
                 buf, n, sup = _forward_extend_dev(
                     self.dg, self.vlab, de.buf, de.n, at, label, elabel,
                     width=w, nv=de.nv, cap_p=de.cap, cap_c=cap_c,
@@ -358,7 +358,7 @@ class _FSM:
     def backward_filter(self, de: DevEmb, p: int, q: int,
                         elabel: int = 0) -> DevEmb:
         PROFILER.count("fsm_filters")
-        with PROFILER.phase("fsm_filter"):
+        with PROFILER.span("fsm_filter"):
             w, _ = self._call_width(de, p)
             buf, n, sup = _backward_filter_dev(
                 self.dg, de.buf, de.n, p, q, elabel, width=w, nv=de.nv,

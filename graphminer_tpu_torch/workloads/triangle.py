@@ -51,14 +51,14 @@ def triangle_count(g, chunk: int = 16384, backend: str = "auto",
     from ..utils.profiling import PROFILER
     dev = resolve_device(device)
     if not g.is_dag:
-        with PROFILER.phase("orient"):
+        with PROFILER.span("orient"):
             g = g.orientation()
-    with PROFILER.phase("prep"):
+    with PROFILER.span("prep"):
         dg = DeviceGraph.from_host(g, device=dev)
         src, dst = g.edge_list()
     PROFILER.count("edge_tasks", int(src.shape[0]))
     PROFILER.count("set_ops_level2", int(src.shape[0]))
-    with PROFILER.phase("device_count", dev):
+    with PROFILER.span("device_count", dev, hot=True):
         if not bucketed:
             width = max(8, g.max_degree)
             total = _tc_device(dg, to_device(src, dev), to_device(dst, dev),
